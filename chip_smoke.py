@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's CUDA kernels from esn_ofdm_mimo_tpu_torch/csrc/ (nvcc,
-sm_90a, at first use), then:
+Builds the port's four CUDA kernels from esn_ofdm_mimo_tpu_torch/csrc/ (one
+nvcc per source, all started together; sm_90a), then:
 
   1. prints the card (nvidia-smi name and power limit) and the build time;
   2. K1, the BP decoder (csrc/bp_decode.cu), against its plain PyTorch
@@ -12,26 +12,42 @@ sm_90a, at first use), then:
      identical bits, iterations, converged flags and counts for offset
      min-sum (the flagship rule) and normalised min-sum; sum-product within
      the agreement band of the JAX package's own kernel test;
+     [K1-nbf] the same for offset min-sum on 12,800 codewords of the
+     mimo_4x8_nbf code (n = 2048, 1,024 threads a block) under the
+     iteration caps 100 and 200;
   3. K2, the ESN predict recurrence (csrc/esn_predict.cu), against its plain
      version at the flagship detect shape (9,472 rows, T = 138, n_res = 300,
      128 readouts of 74 rows): noise 0 within atol 1e-4 / rtol 1e-3, noise
-     1e-3 within the plain version's own noise band;
-  4. a small reference check: the tiny CDL configuration through
-     `cdl_snr_point` on the GPU (kernels) and on the CPU (plain versions),
-     MMSE counters within a few bit flips;
-  5. the main path: `cdl_snr_point` on the flagship `mimo_4x8_cdl` at full
-     width (N = 128, 4x8, n_res = 300, D = 74, n = 512), 128 blocks, one
-     calibration and one decode round at 12 dB, with both kernels' launch
-     counts reset just before and read just after;
-  6. one JSON line listing the kernels (launches on the main path, error
+     1e-3 within the plain version's own noise band; [K2-nbf] the same check
+     at the mimo_4x8_nbf detect shape (2,304 rows, T = 522, n_res = 600);
+  4. K3, the ESN state harvest (csrc/esn_states.cu), against plain
+     esn_states at the mimo_4x8_nbf fit shape (128 x 522 x 600) and the
+     flagship fit shape (128 x 138 x 300), the same tolerances;
+  5. K4, the grouped-readout predict (csrc/esn_predict_grouped.cu), against
+     plain grouped esn_predict and against K2 at the flagship detect shape;
+  6. small reference checks: tiny CDL and tiny NBF configurations through
+     `cdl_snr_point` / `nbf_snr_point` on the GPU (kernels) and on the CPU
+     (plain versions), classical-detector counters within a few bit flips;
+  7. the main paths at full width, each with every kernel's launch count
+     reset just before and read just after:
+       [nbf main] `nbf_snr_point` on mimo_4x8_nbf (N = 512, 4x8, n_res = 600,
+       T = 522, D = 18, n = 2048), 128 blocks, one round at 3 dB (doubled
+       BP cap) and at 12 dB, five detectors: K1, K2 and K3 launched;
+       [main] `cdl_snr_point` on the flagship mimo_4x8_cdl (N = 128, 4x8,
+       n_res = 300, D = 74, n = 512), 128 blocks, one calibration and one
+       decode round at 12 dB: K1, K2 and K3 launched;
+       [main grouped] the same flagship point with
+       ESN_TPU_PREDICT_READOUT=grouped: K4 launched;
+  8. one JSON line listing the kernels (launches on the main paths, error
      against the plain version, times, bound), then the card line and the
      final {"ok": true, ...} line.
 
 Every phase ends in torch.cuda.synchronize(); any failure exits non-zero
 before the final line. Without CUDA it exits 1 and prints no result.
 
---profile adds one more main-path run under torch.profiler and prints the
-device time by kernel and the device's busy share of the run's wall time.
+--profile adds one more run of the flagship and the 12 dB NBF main paths
+under torch.profiler and prints the device time by kernel and the device's
+busy share of each run's wall time.
 """
 from __future__ import annotations
 
@@ -59,25 +75,55 @@ def _log(msg: str):
     print(msg, flush=True)
 
 
+def _bound(n_bytes: float, ops: float):
+    """(least ms for the work on the card, what bounds it)."""
+    t_b, t_o = n_bytes / _HBM_BYTES_PER_S, ops / _FP32_FLOP_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def _entry(name, source, replaces, err, ms, plain_ms, n_bytes, ops):
+    bound_ms, by = _bound(n_bytes, ops)
+    return dict(name=name, route="cuda",
+                source=f"esn_ofdm_mimo_tpu_torch/csrc/{source}",
+                replaces=replaces, launches=0, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None)
+
+
 def main() -> None:
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
 
     from esn_ofdm_mimo_tpu_torch import config as tc
-    from esn_ofdm_mimo_tpu_torch.experiments.presets import mimo_4x8_cdl
+    from esn_ofdm_mimo_tpu_torch.experiments.presets import (mimo_4x8_cdl,
+                                                             mimo_4x8_nbf)
     from esn_ofdm_mimo_tpu_torch.ldpc import decode_cuda, ldpc_encode, \
         make_code
     from esn_ofdm_mimo_tpu_torch.ldpc.decode import ldpc_decode_bp_plain
-    from esn_ofdm_mimo_tpu_torch.models import esn_cuda
+    from esn_ofdm_mimo_tpu_torch.models import esn_cuda, esn_states_cuda
     from esn_ofdm_mimo_tpu_torch.models.esn import (EsnScale, esn_predict,
+                                                    esn_states,
                                                     init_reservoir)
-    from esn_ofdm_mimo_tpu_torch.parallel import cdl_snr_point
+    from esn_ofdm_mimo_tpu_torch.parallel import cdl_snr_point, nbf_snr_point
     from esn_ofdm_mimo_tpu_torch.utils import build, rng
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
+    counters = ((decode_cuda, "launches", "bp_decode"),
+                (esn_cuda, "launches", "esn_predict"),
+                (esn_states_cuda, "launches", "esn_states"),
+                (esn_cuda, "launches_grouped", "esn_predict_grouped"))
+
+    def reset_counts():
+        for mod, attr, _ in counters:
+            setattr(mod, attr, 0)
+
+    def read_counts() -> dict:
+        return {name: getattr(mod, attr) for mod, attr, name in counters}
 
     def cuda_ms(fn, reps: int) -> float:
         """Mean ms per call over `reps` calls after one warm-up call."""
@@ -92,6 +138,27 @@ def main() -> None:
         sync()
         return e0.elapsed_time(e1) / reps
 
+    def close(got, want, what: str) -> float:
+        """Kernel output against its plain version: atol 1e-4, rtol 1e-3."""
+        sync()
+        err = float((got - want).abs().max())
+        _check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+               f"{what} output has the wrong shape or is not finite")
+        _check(torch.allclose(got, want, atol=1e-4, rtol=1e-3),
+               f"{what} differs from the plain version (max abs err {err})")
+        return err
+
+    rms = lambda a: float(a.pow(2).mean().sqrt())                # noqa: E731
+
+    def noise_band(kernel_noisy, plain_noisy, clean, what: str):
+        """State noise 1e-3: the kernel's deviation from the noiseless plain
+        output within 0.8-1.25x the plain version's own."""
+        r_k, r_p = rms(kernel_noisy - clean), rms(plain_noisy - clean)
+        _check(0.8 * r_p <= r_k <= 1.25 * r_p,
+               f"{what} noise RMS {r_k} outside 0.8-1.25x the plain "
+               f"version's {r_p}")
+        return r_k, r_p
+
     # ---- 1. device and build ------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -105,42 +172,63 @@ def main() -> None:
          f"total {time.perf_counter() - t0:.2f} s")
 
     cfg = mimo_4x8_cdl()
+    nbf = mimo_4x8_nbf()
     kernels = {}
-
-    # ---- 2. K1: BP decoder vs its plain version -----------------------------
-    code = make_code(cfg.ldpc, cfg.ofdm.n_subcarriers * cfg.ofdm.bits_per_symbol)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    n_half = 37_888                      # 2 x 37,888 = one flagship decode batch
-    us, llrs = [], []
-    for ebno in (1.5, 2.5):
-        u = torch.randint(0, 2, (n_half, code.k), generator=gen, device=dev,
-                          dtype=torch.int8)
-        x = 1.0 - 2.0 * ldpc_encode(code, u).float()
-        sigma2 = 1.0 / (2.0 * code.k / code.n * 10.0 ** (ebno / 10.0))
-        y = x + sigma2 ** 0.5 * torch.randn(x.shape, generator=gen, device=dev)
-        us.append(u)
-        llrs.append((2.0 * y / sigma2).contiguous())
-    u, llr = torch.cat(us), torch.cat(llrs)
+
+    # ---- 2. K1: BP decoder vs its plain version -----------------------------
+    def awgn_codewords(code, n_half: int, ebnos):
+        """n_half random codewords at each Eb/N0 (BPSK, AWGN) -> (info bits,
+        channel LLRs)."""
+        us, llrs = [], []
+        for ebno in ebnos:
+            u = torch.randint(0, 2, (n_half, code.k), generator=gen,
+                              device=dev, dtype=torch.int8)
+            x = 1.0 - 2.0 * ldpc_encode(code, u).float()
+            sigma2 = 1.0 / (2.0 * code.k / code.n * 10.0 ** (ebno / 10.0))
+            y = x + sigma2 ** 0.5 * torch.randn(x.shape, generator=gen,
+                                                device=dev)
+            us.append(u)
+            llrs.append((2.0 * y / sigma2).contiguous())
+        return torch.cat(us), torch.cat(llrs)
+
+    def k1_identical(code, llr, u, what: str, **kw):
+        """Bits, iterations, converged flags and counts of K1 equal to the
+        plain version's; returns the iteration sum."""
+        bits_k, st_k = decode_cuda.ldpc_decode_bp_cuda(code, llr, **kw)
+        err_k, stc_k = decode_cuda.ldpc_decode_bp_cuda_counts(code, llr, u,
+                                                              **kw)
+        bits_p, st_p = ldpc_decode_bp_plain(code, llr, **kw)
+        err_p, _ = ldpc_decode_bp_plain(code, llr, count_against=u, **kw)
+        sync()
+        _check(torch.equal(bits_k, bits_p),
+               f"{what} bits differ from the plain version")
+        _check(torch.equal(st_k["iterations"], st_p["iterations"]),
+               f"{what} iterations differ from the plain version")
+        _check(torch.equal(st_k["converged"], st_p["converged"]),
+               f"{what} converged flags differ from the plain version")
+        _check(torch.equal(err_k.long(), err_p.long())
+               and torch.equal(stc_k["iterations"], st_p["iterations"]),
+               f"{what} counts mode differs from the plain version")
+        return (int(st_k["iterations"].long().sum()),
+                float(st_k["converged"].float().mean()))
+
+    def k1_work(code, llr, u, it_sum):
+        """Bytes (LLRs in, truth in, counts/stats out) and operations (13
+        fp32 ops per edge and executed iteration: q = Lt - r, clip x2, |q|,
+        min/second-min x2, sign, select, offset, max, sign product,
+        posterior add, parity)."""
+        return (llr.numel() * 4 + u.numel() + llr.shape[0] * (4 + 4 + 1),
+                13.0 * code.dv * code.n * it_sum)
+
+    code = make_code(cfg.ldpc,
+                     cfg.ofdm.n_subcarriers * cfg.ofdm.bits_per_symbol)
+    u, llr = awgn_codewords(code, 37_888, (1.5, 2.5))  # one flagship batch
     kw = dict(max_iter=cfg.ldpc.max_iter, algo=cfg.ldpc.algo,
               minsum_offset=cfg.ldpc.minsum_offset)
-    bits_k, st_k = decode_cuda.ldpc_decode_bp_cuda(
-        code, llr, pass1_iters=cfg.ldpc.pass1_iters, **kw)
-    err_k, stc_k = decode_cuda.ldpc_decode_bp_cuda_counts(
-        code, llr, u, pass1_iters=cfg.ldpc.pass1_iters, **kw)
-    bits_p, st_p = ldpc_decode_bp_plain(code, llr, **kw)
-    err_p, _ = ldpc_decode_bp_plain(code, llr, count_against=u, **kw)
-    sync()
-    _check(torch.equal(bits_k, bits_p), "K1 bits differ from the plain version")
-    _check(torch.equal(st_k["iterations"], st_p["iterations"]),
-           "K1 iterations differ from the plain version")
-    _check(torch.equal(st_k["converged"], st_p["converged"]),
-           "K1 converged flags differ from the plain version")
-    _check(torch.equal(err_k.long(), err_p.long())
-           and torch.equal(stc_k["iterations"], st_p["iterations"]),
-           "K1 counts mode differs from the plain version")
-    it_sum = int(st_k["iterations"].long().sum())
-    conv_frac = float(st_k["converged"].float().mean())
+    it_sum, conv_frac = k1_identical(code, llr, u, "K1",
+                                     pass1_iters=cfg.ldpc.pass1_iters, **kw)
     k1_ms = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
         code, llr, u, pass1_iters=cfg.ldpc.pass1_iters, **kw), 3)
     k1_plain_ms = cuda_ms(lambda: ldpc_decode_bp_plain(
@@ -164,83 +252,188 @@ def main() -> None:
         else:
             _check(agree > 0.999 and it_agree > 0.9 and cv_agree > 0.95,
                    f"K1 {algo} outside the agreement band")
-    # bound: LLRs in + truth in + counts/stats out, and the check/variable
-    # arithmetic of the iterations this data ran (13 fp32 ops per edge and
-    # iteration: q = Lt - r, clip x2, |q|, min/second-min x2, sign, select,
-    # offset, max, sign product, posterior add, parity)
-    edges = code.dv * code.n
-    k1_bytes = llr.numel() * 4 + u.numel() + llr.shape[0] * (4 + 4 + 1)
-    k1_ops = 13.0 * edges * it_sum
-    k1_bound = 1e3 * max(k1_bytes / _HBM_BYTES_PER_S, k1_ops / _FP32_FLOP_PER_S)
-    kernels["bp_decode"] = dict(
-        name="bp_decode", route="cuda",
-        source="esn_ofdm_mimo_tpu_torch/csrc/bp_decode.cu",
-        replaces="esn_ofdm_mimo_tpu/ldpc/decode_pallas.py:89",
-        max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound,
-        bound_by="bytes" if k1_bytes / _HBM_BYTES_PER_S
-        >= k1_ops / _FP32_FLOP_PER_S else "operations",
-        library_ms=None)
+    kernels["bp_decode"] = _entry(
+        "bp_decode", "bp_decode.cu",
+        "esn_ofdm_mimo_tpu/ldpc/decode_pallas.py:89",
+        0.0, k1_ms, k1_plain_ms, *k1_work(code, llr, u, it_sum))
     _log(f"[K1 offset-minsum] {llr.shape[0]} codewords at Eb/N0 1.5/2.5 dB: "
          f"bits, iterations, converged, counts identical | mean iterations "
          f"{it_sum / llr.shape[0]:.3f} converged {conv_frac:.4f} | kernel "
-         f"{k1_ms:.3f} ms plain {k1_plain_ms:.3f} ms bound {k1_bound:.4f} ms")
+         f"{k1_ms:.3f} ms plain {k1_plain_ms:.3f} ms bound "
+         f"{kernels['bp_decode']['bound_ms']:.4f} ms")
+
+    # K1 at the NBF code: n = 2048, Z = 256, dv * Z = 1,024 threads a block,
+    # (2 + dv) * dc * Z * 4 B = 48 KB of shared memory; both runtime caps
+    code_n = make_code(nbf.ldpc,
+                       nbf.ofdm.n_subcarriers * nbf.ofdm.bits_per_symbol)
+    u_n, llr_n = awgn_codewords(code_n, 6_400, (1.0, 1.5))
+    kw_n = dict(max_iter=2 * nbf.ldpc.max_iter, algo=nbf.ldpc.algo,
+                minsum_offset=nbf.ldpc.minsum_offset,
+                pass1_iters=nbf.ldpc.pass1_iters)
+    for cap in (nbf.ldpc.max_iter, 2 * nbf.ldpc.max_iter):
+        it_n, conv_n = k1_identical(code_n, llr_n, u_n, f"K1-nbf cap {cap}",
+                                    iter_cap=cap, **kw_n)
+        _log(f"[K1-nbf cap {cap}] {llr_n.shape[0]} codewords of n = "
+             f"{code_n.n} at Eb/N0 1.0/1.5 dB: bits, iterations, converged, "
+             f"counts identical | mean iterations {it_n / llr_n.shape[0]:.3f}"
+             f" converged {conv_n:.4f}")
+    k1n_ms = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
+        code_n, llr_n, u_n, iter_cap=cap, **kw_n), 2)
+    k1n_plain_ms = cuda_ms(lambda: ldpc_decode_bp_plain(
+        code_n, llr_n, iter_cap=cap, count_against=u_n, **kw_n), 1)
+    k1n_bound, k1n_by = _bound(*k1_work(code_n, llr_n, u_n, it_n))
+    _log(f"[K1-nbf cap {cap}] kernel {k1n_ms:.3f} ms plain "
+         f"{k1n_plain_ms:.3f} ms bound {k1n_bound:.4f} ms ({k1n_by})")
 
     # ---- 3. K2: ESN predict vs its plain version ----------------------------
-    n_res = cfg.esn.n_reservoir
-    n_in, n_out = 2 * cfg.channel.n_rx, 2 * cfg.channel.n_tx
-    G, Dg = 128, cfg.data_symbols_per_block
-    delay = cfg.esn.shared_delay(cfg.ofdm.isi_duration)
-    T = cfg.ofdm.n_subcarriers + cfg.ofdm.cp_len + delay
-    n_forget = delay + cfg.ofdm.cp_len
-    B = G * Dg
-    res = init_reservoir(rng.prng_key(7, dev), n_in, n_out, n_res,
-                         cfg.esn.spectral_radius, cfg.esn.sparsity, 0.0)
+    def predict_shape(c, G: int, seed: int):
+        """Reservoir, scale, grouped readouts and inputs of a detect call of
+        G blocks of config c, at full width."""
+        n_res = c.esn.n_reservoir
+        n_in, n_out = 2 * c.channel.n_rx, 2 * c.channel.n_tx
+        delay = c.esn.shared_delay(c.ofdm.isi_duration)
+        T = c.ofdm.n_subcarriers + c.ofdm.cp_len + delay
+        res = init_reservoir(rng.prng_key(seed, dev), n_in, n_out, n_res,
+                             c.esn.spectral_radius, c.esn.sparsity, 0.0)
+        B = G * c.data_symbols_per_block
+        inputs = torch.randn(B, T, n_in, generator=gen, device=dev)
+        Wt_out = 0.02 * torch.randn(G, n_res + n_in, n_out, generator=gen,
+                                    device=dev)
+        return res, inputs, Wt_out, delay + c.ofdm.cp_len
+
+    def predict_work(res, inputs, Wt_out, out):
+        """Bytes (inputs + weights in, outputs out) and operations (2 flops
+        per multiply-add of [W | W_in | W_fb] and the readout, plus tanh, per
+        row and step)."""
+        (B, T, n_in), n_res = inputs.shape, res.Wt.shape[0]
+        n_out = Wt_out.shape[-1]
+        n_bytes = 4 * (inputs.numel() + Wt_out.numel() + out.numel()
+                       + n_res * (n_res + n_in + n_out))
+        ops = float(B) * T * (2 * n_res * (n_res + n_in + n_out)
+                              + 2 * (n_res + n_in) * n_out + n_res)
+        return n_bytes, ops
+
     scale = EsnScale(input_scaling=0.5, input_shift=0.0, teacher_scaling=1.0)
-    inputs = torch.randn(B, T, n_in, generator=gen, device=dev)
-    Wt_out = 0.02 * torch.randn(G, n_res + n_in, n_out, generator=gen,
-                                device=dev)
+    G = 128
+    res, inputs, Wt_out, n_forget = predict_shape(cfg, G, 7)
+    B, T = inputs.shape[:2]
     pk = esn_cuda.esn_predict_cuda(res, scale, Wt_out, inputs, n_forget, 0)
     pp = esn_predict(res, scale, Wt_out, inputs, n_forget)
-    sync()
-    k2_err = float((pk - pp).abs().max())
-    _check(pk.shape == (B, T - n_forget, n_out) and bool(torch.isfinite(pk).all()),
-           "K2 output has the wrong shape or is not finite")
-    _check(torch.allclose(pk, pp, atol=1e-4, rtol=1e-3),
-           f"K2 differs from the plain version (max abs err {k2_err})")
+    k2_err = close(pk, pp, "K2")
     noisy = res._replace(noise=1e-3)
     gn = torch.Generator(device=dev)
     gn.manual_seed(3)
-    rms = lambda a: float(a.pow(2).mean().sqrt())                # noqa: E731
-    r_k = rms(esn_cuda.esn_predict_cuda(noisy, scale, Wt_out, inputs,
-                                        n_forget, 12345) - pp)
-    r_p = rms(esn_predict(noisy, scale, Wt_out, inputs, n_forget, gn) - pp)
-    _check(0.8 * r_p <= r_k <= 1.25 * r_p,
-           f"K2 noise RMS {r_k} outside 0.8-1.25x the plain version's {r_p}")
+    r_k, r_p = noise_band(
+        esn_cuda.esn_predict_cuda(noisy, scale, Wt_out, inputs, n_forget,
+                                  12345),
+        esn_predict(noisy, scale, Wt_out, inputs, n_forget, gn), pp, "K2")
     k2_ms = cuda_ms(lambda: esn_cuda.esn_predict_cuda(
         res, scale, Wt_out, inputs, n_forget, 0), 3)
     k2_plain_ms = cuda_ms(lambda: esn_predict(
         res, scale, Wt_out, inputs, n_forget), 2)
-    # bound: inputs + weights in, outputs out; 2 flops per multiply-add of the
-    # recurrence [W | W_in | W_fb] and the readout, plus tanh, per row-step
-    k2_bytes = 4 * (inputs.numel() + Wt_out.numel() + pk.numel()
-                    + n_res * (n_res + n_in + n_out))
-    k2_ops = float(B) * T * (2 * n_res * (n_res + n_in + n_out)
-                             + 2 * (n_res + n_in) * n_out + n_res)
-    k2_bound = 1e3 * max(k2_bytes / _HBM_BYTES_PER_S, k2_ops / _FP32_FLOP_PER_S)
-    kernels["esn_predict"] = dict(
-        name="esn_predict", route="cuda",
-        source="esn_ofdm_mimo_tpu_torch/csrc/esn_predict.cu",
-        replaces="esn_ofdm_mimo_tpu/models/esn_pallas.py:101",
-        max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound,
-        bound_by="bytes" if k2_bytes / _HBM_BYTES_PER_S
-        >= k2_ops / _FP32_FLOP_PER_S else "operations",
-        library_ms=None)
-    _log(f"[K2] rows {B} T {T} n_res {n_res} G {G} Dg {Dg}: max abs err "
-         f"{k2_err:.3e} | noise RMS kernel {r_k:.4e} plain {r_p:.4e} | "
-         f"kernel {k2_ms:.3f} ms plain {k2_plain_ms:.3f} ms bound "
-         f"{k2_bound:.4f} ms ({k2_ops / 1e9:.1f} GFLOP)")
+    k2_work = predict_work(res, inputs, Wt_out, pk)
+    kernels["esn_predict"] = _entry(
+        "esn_predict", "esn_predict.cu",
+        "esn_ofdm_mimo_tpu/models/esn_pallas.py:101", k2_err, k2_ms,
+        k2_plain_ms, *k2_work)
+    _log(f"[K2] rows {B} T {T} n_res {res.Wt.shape[0]} G {G} Dg {B // G}: "
+         f"max abs err {k2_err:.3e} | noise RMS kernel {r_k:.4e} plain "
+         f"{r_p:.4e} | kernel {k2_ms:.3f} ms plain {k2_plain_ms:.3f} ms "
+         f"bound {kernels['esn_predict']['bound_ms']:.4f} ms "
+         f"({k2_work[1] / 1e9:.1f} GFLOP)")
 
-    # ---- 4. small reference check: GPU kernels vs CPU plain versions --------
+    # K2 at the NBF detect shape: n_res = 600 (the NJ4 = 10 build, 160 KB of
+    # shared memory, one block an SM) and 36 tiles of 64 rows
+    res_n, inputs_n, Wt_out_n, n_forget_n = predict_shape(nbf, G, 8)
+    pk_n = esn_cuda.esn_predict_cuda(res_n, scale, Wt_out_n, inputs_n,
+                                     n_forget_n, 0)
+    pp_n = esn_predict(res_n, scale, Wt_out_n, inputs_n, n_forget_n)
+    k2n_err = close(pk_n, pp_n, "K2-nbf")
+    k2n_ms = cuda_ms(lambda: esn_cuda.esn_predict_cuda(
+        res_n, scale, Wt_out_n, inputs_n, n_forget_n, 0), 2)
+    k2n_plain_ms = cuda_ms(lambda: esn_predict(
+        res_n, scale, Wt_out_n, inputs_n, n_forget_n), 1)
+    k2n_bound, k2n_by = _bound(*predict_work(res_n, inputs_n, Wt_out_n, pk_n))
+    _log(f"[K2-nbf] rows {inputs_n.shape[0]} T {inputs_n.shape[1]} n_res "
+         f"{res_n.Wt.shape[0]} G {G} Dg {inputs_n.shape[0] // G} "
+         f"({-(-inputs_n.shape[0] // 64)} tiles): max abs err {k2n_err:.3e} | "
+         f"kernel {k2n_ms:.3f} ms plain {k2n_plain_ms:.3f} ms bound "
+         f"{k2n_bound:.4f} ms ({k2n_by})")
+    del pk_n, pp_n, inputs_n
+
+    # ---- 4. K3: ESN state harvest vs its plain version ----------------------
+    def k3_phase(c, label: str, seed: int):
+        """K3 against plain esn_states at the fit shape of config c (128
+        blocks of one pilot each): returns (error, ms, plain ms, bytes,
+        operations)."""
+        n_res = c.esn.n_reservoir
+        n_in, n_out = 2 * c.channel.n_rx, 2 * c.channel.n_tx
+        T = (c.ofdm.n_subcarriers + c.ofdm.cp_len
+             + c.esn.shared_delay(c.ofdm.isi_duration))
+        r = init_reservoir(rng.prng_key(seed, dev), n_in, n_out, n_res,
+                           c.esn.spectral_radius, c.esn.sparsity, 0.0)
+        x = torch.randn(G, T, n_in, generator=gen, device=dev)
+        d = 0.5 * torch.randn(G, T, n_out, generator=gen, device=dev)
+        sk = esn_states_cuda.esn_states_cuda(r, scale, x, d, 0)
+        sp = esn_states(r, scale, x, d)
+        err = close(sk, sp, f"K3 {label}")
+        g3 = torch.Generator(device=dev)
+        g3.manual_seed(4)
+        rn = r._replace(noise=1e-3)
+        r_k3, r_p3 = noise_band(
+            esn_states_cuda.esn_states_cuda(rn, scale, x, d, 12345),
+            esn_states(rn, scale, x, d, g3), sp, f"K3 {label}")
+        ms = cuda_ms(lambda: esn_states_cuda.esn_states_cuda(
+            r, scale, x, d, 0), 3)
+        plain_ms = cuda_ms(lambda: esn_states(r, scale, x, d), 2)
+        # bytes: inputs, teachers and weights read once, states written once;
+        # operations: 2 per multiply-add of [Wt; W_in; W_fb] per row and step
+        n_bytes = 4 * (x.numel() + d.numel() + sk.numel()
+                       + n_res * (n_res + n_in + n_out))
+        ops = 2.0 * G * (T - 1) * n_res * (n_res + n_in + n_out)
+        bound_ms, by = _bound(n_bytes, ops)
+        _log(f"[K3 {label}] {G} x {T} x {n_res}: max abs err {err:.3e} | "
+             f"noise RMS kernel {r_k3:.4e} plain {r_p3:.4e} | kernel "
+             f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms "
+             f"({by}, {ops / 1e9:.1f} GFLOP)")
+        return err, ms, plain_ms, n_bytes, ops
+
+    k3 = k3_phase(nbf, "nbf fit", 9)
+    k3_phase(cfg, "flagship fit", 10)
+    kernels["esn_states"] = _entry(
+        "esn_states", "esn_states.cu",
+        "esn_ofdm_mimo_tpu/models/esn_pallas.py:346", *k3)
+
+    # ---- 5. K4: grouped-readout predict vs plain and K2 ---------------------
+    pg = esn_cuda.esn_predict_cuda(res, scale, Wt_out, inputs, n_forget, 0,
+                                   readout="grouped")
+    k4_err = close(pg, pp, "K4")
+    k4_vs_k2 = float((pg - pk).abs().max())
+    r_k4, _ = noise_band(
+        esn_cuda.esn_predict_cuda(noisy, scale, Wt_out, inputs, n_forget,
+                                  12345, readout="grouped"),
+        esn_predict(noisy, scale, Wt_out, inputs, n_forget, gn), pp, "K4")
+    # in turns on one card: K2, K4, K4, K2
+    run_k2 = lambda: esn_cuda.esn_predict_cuda(                  # noqa: E731
+        res, scale, Wt_out, inputs, n_forget, 0)
+    run_k4 = lambda: esn_cuda.esn_predict_cuda(                  # noqa: E731
+        res, scale, Wt_out, inputs, n_forget, 0, readout="grouped")
+    t = [cuda_ms(f, 3) for f in (run_k2, run_k4, run_k4, run_k2)]
+    k4_ms, k2_pair_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    kernels["esn_predict_grouped"] = _entry(
+        "esn_predict_grouped", "esn_predict_grouped.cu",
+        "esn_ofdm_mimo_tpu/models/esn_pallas.py:152", k4_err, k4_ms,
+        k2_plain_ms, *k2_work)
+    _log(f"[K4] rows {B} T {T} G {G} Dg {B // G} P "
+         f"{esn_cuda.grouped_slots(G, B // G)}: max abs err vs plain "
+         f"{k4_err:.3e} vs K2 {k4_vs_k2:.3e} | noise RMS {r_k4:.4e} | kernel "
+         f"{k4_ms:.3f} ms, K2 in the same turns {k2_pair_ms:.3f} ms, plain "
+         f"{k2_plain_ms:.3f} ms, bound "
+         f"{kernels['esn_predict_grouped']['bound_ms']:.4f} ms")
+    del pg, pk, pp, inputs
+
+    # ---- 6. small reference checks: GPU kernels vs CPU plain versions ------
+    root = rng.prng_key(0)
     tiny = tc.SimConfig(
         name="cdl_tiny",
         ofdm=tc.OfdmConfig(n_subcarriers=32, bits_per_symbol=4,
@@ -249,7 +442,6 @@ def main() -> None:
         esn=tc.EsnConfig(n_reservoir=40, train_ebno_fixed_db=None, noise=0.0),
         ldpc=tc.LdpcConfig(max_iter=8, family="qc", algo="offset-minsum"),
         calib=tc.CalibConfig(enabled=True), ebno_db=(12.0,))
-    root = rng.prng_key(0)
     tk = rng.block_keys(root, 1, torch.arange(16)).reshape(2, 1, 8, 2)
     small = {d: cdl_snr_point(tiny, 20.0, tk[0].numpy(), tk[1].numpy(),
                               device=d) for d in ("cuda", "cpu")}
@@ -265,57 +457,165 @@ def main() -> None:
         _check(all(abs(x - y) <= band for x, y in pairs),
                f"tiny {name} counters: GPU and CPU differ beyond {band}")
 
-    # ---- 5. the main path at full width -------------------------------------
+    tiny_nbf = tc.SimConfig(
+        name="nbf_tiny",
+        ofdm=tc.OfdmConfig(n_subcarriers=32, bits_per_symbol=4,
+                           doppler_hz=3000.0),
+        channel=tc.ChannelConfig(kind="exp_pdp", n_tx=2, n_rx=2),
+        esn=tc.EsnConfig(n_reservoir=40, noise=0.0),
+        ldpc=tc.LdpcConfig(max_iter=20, decode_every=2, family="qc",
+                           algo="offset-minsum"))
+    nk = rng.block_keys(root, 2, torch.arange(8)).reshape(1, 8, 2).numpy()
+    small_nbf = {d: nbf_snr_point(tiny_nbf, 12.0, nk, device=d)
+                 for d in ("cuda", "cpu")}
+    sync()
+    a, b = small_nbf["cuda"], small_nbf["cpu"]
+    for name in sorted(a.bit_errors):
+        pairs = [(a.bit_errors[name], b.bit_errors[name]),
+                 (a.info_errors[name], b.info_errors[name])]
+        _log(f"[reference tiny nbf {name}] gpu/cpu uncoded, coded: {pairs}")
+        if name in ("zf_perfect", "zf_ls", "mmse"):
+            _check(all(abs(x - y) <= 8 + y // 100 for x, y in pairs),
+                   f"tiny nbf {name} counters: GPU and CPU differ beyond a "
+                   f"few bit flips")
+    _check(a.cond_hist.tolist() == b.cond_hist.tolist()
+           and a.rank_full_sum == b.rank_full_sum,
+           "tiny nbf channel analytics: GPU and CPU differ")
+
+    # ---- 7. the main paths at full width ------------------------------------
+    launches_total = {name: 0 for _, _, name in counters}
+
+    def count_run(run, need, what: str):
+        """Run `run` with every launch count reset just before and read just
+        after; the kernels in `need` must have launched."""
+        sync()
+        reset_counts()
+        phases = {}
+        t0 = time.perf_counter()
+        out = run(phases)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        _check(all(launches[k] > 0 for k in need),
+               f"{what}: a kernel of the path was never launched: {launches}")
+        for k, v in launches.items():
+            launches_total[k] += v
+        return out, phases, wall, launches
+
+    # block fading: mimo_4x8_nbf, five detectors, at 3 dB and 12 dB
+    G_nbf, D_n = 128, nbf.data_symbols_per_block
+    nbf_keys = {e: rng.block_keys(root, nbf.ebno_db.index(e),
+                                  torch.arange(G_nbf))
+                .reshape(1, G_nbf, 2).numpy() for e in (3.0, 12.0)}
+    nbf_snr_point(nbf, 12.0, nbf_keys[12.0][:, :8])              # warm-up
+    nbf_wall = {}
+    for ebno_n in (3.0, 12.0):
+        pt_n, ph_n, wall_n, la_n = count_run(
+            lambda ph: nbf_snr_point(nbf, ebno_n, nbf_keys[ebno_n],
+                                     timings=ph),
+            ("bp_decode", "esn_predict", "esn_states"), f"nbf {ebno_n} dB")
+        nbf_wall[ebno_n] = wall_n
+        ber = {d: v / pt_n.total_bits for d, v in pt_n.bit_errors.items()}
+        coded = {d: v / pt_n.total_info_bits
+                 for d, v in pt_n.info_errors.items()}
+        n_cw = G_nbf * len(range(0, D_n, nbf.ldpc.decode_every)) \
+            * nbf.channel.n_tx
+        cap = nbf.ldpc.max_iter * (2 if ebno_n < 6.0 else 1)
+        _log(f"[nbf main] mimo_4x8_nbf {ebno_n} dB, {G_nbf} blocks x 1 round"
+             f" (N {nbf.ofdm.n_subcarriers}, n_res {nbf.esn.n_reservoir}, D "
+             f"{D_n}, n {code_n.n}, BP cap {cap}): uncoded errors "
+             f"{pt_n.bit_errors} / {pt_n.total_bits}, info errors "
+             f"{pt_n.info_errors} / {pt_n.total_info_bits}, frame errors "
+             f"{pt_n.frame_errors} / {pt_n.ldpc_codewords}")
+        _log(f"[nbf main] uncoded BER {ber} coded BER {coded} | BP "
+             f"iterations {pt_n.ldpc_iter_sum} unconverged "
+             f"{pt_n.ldpc_unconverged} | capacity/sc "
+             f"{pt_n.capacity_sum / pt_n.n_blocks:.4f} full rank "
+             f"{pt_n.rank_full_sum}/{pt_n.rank_count}")
+        _log(f"[nbf main] phases ms "
+             f"{json.dumps({k: round(v, 3) for k, v in ph_n.items()})} wall "
+             f"{1e3 * wall_n:.3f} ms | blocks/s {G_nbf / wall_n:.2f} | "
+             f"detected symbols/s {G_nbf * (D_n + 1) / wall_n:.1f} | "
+             f"launches {la_n}")
+        for d in ber:
+            _check(0.0 < ber[d] < 0.5,
+                   f"nbf {ebno_n} dB {d} uncoded BER {ber[d]} not in (0, 0.5)")
+        _check(pt_n.ldpc_codewords == n_cw, "unexpected NBF codeword count")
+        for d, n_unc in pt_n.ldpc_unconverged.items():
+            _check(pt_n.ldpc_iter_sum[d] >= n_unc * cap,
+                   f"nbf {ebno_n} dB {d}: unconverged codewords below the "
+                   f"cap {cap}")
+        if ebno_n == 12.0:
+            _check(coded["mmse"] <= ber["mmse"],
+                   "NBF MMSE coded BER above its uncoded BER at 12 dB")
+
+    # the flagship: mimo_4x8_cdl at 12 dB
     ebno = 12.0
     G_main = 128
     ids = torch.arange(2 * G_main)
     keys = rng.block_keys(root, 0, ids).reshape(2, 1, G_main, 2).numpy()
     cdl_snr_point(cfg, ebno, keys[0][:, :8], keys[1][:, :8])   # warm-up
-    sync()
-    decode_cuda.launches = 0
-    esn_cuda.launches = 0
-    phases = {}
-    t0 = time.perf_counter()
-    pt = cdl_snr_point(cfg, ebno, keys[0], keys[1], timings=phases)
-    sync()
-    wall = time.perf_counter() - t0
-    launches = {"bp_decode": decode_cuda.launches,
-                "esn_predict": esn_cuda.launches}
-    _check(all(v > 0 for v in launches.values()),
-           f"a kernel of the main path was never launched: {launches}")
-    kernels["bp_decode"]["launches"] = launches["bp_decode"]
-    kernels["esn_predict"]["launches"] = launches["esn_predict"]
-    c = pt.counts
     D = cfg.data_symbols_per_block
-    ber = {d: c.bit_errors[d] / c.total_bits for d in c.bit_errors}
-    ber_coded = {d: c.info_errors[d] / c.total_info_bits for d in c.info_errors}
     det_syms = G_main * (D + 1)
-    _log(f"[main] mimo_4x8_cdl {ebno} dB, {G_main} blocks x (1 cal + 1 decode)"
-         f" rounds: cal errors {pt.cal_bit_errors} / {pt.cal_total_bits}")
-    _log(f"[main] decode round: uncoded errors {c.bit_errors} / "
-         f"{c.total_bits}, info errors {c.info_errors} / {c.total_info_bits}, "
-         f"frame errors {c.frame_errors} / {c.ldpc_codewords}")
-    _log(f"[main] uncoded BER {ber} coded BER {ber_coded}")
-    _log(f"[main] BP iterations {c.ldpc_iter_sum} unconverged "
-         f"{c.ldpc_unconverged} of {c.ldpc_codewords} codewords per detector")
-    _log(f"[main] phases ms {json.dumps({k: round(v, 3) for k, v in phases.items()})}"
-         f" wall {1e3 * wall:.3f} ms | detected symbols/s "
-         f"{det_syms / (phases['cal'] / 1e3):.1f} | e2e decoded symbols/s "
-         f"{2 * det_syms / wall:.1f} | launches {launches}")
-    for d in ber:
-        _check(0.0 < ber[d] < 0.5, f"{d} uncoded BER {ber[d]} not in (0, 0.5)")
-        _check(0.0 <= ber_coded[d] < 0.5, f"{d} coded BER {ber_coded[d]}")
-    _check(ber_coded["mmse"] <= ber["mmse"],
-           "MMSE coded BER above its uncoded BER")
-    _check(c.ldpc_codewords == G_main * D * cfg.channel.n_tx,
-           "unexpected codeword count")
+
+    def flagship(what: str, need):
+        pt, phases, wall, launches = count_run(
+            lambda ph: cdl_snr_point(cfg, ebno, keys[0], keys[1], timings=ph),
+            need, what)
+        c = pt.counts
+        ber = {d: c.bit_errors[d] / c.total_bits for d in c.bit_errors}
+        ber_coded = {d: c.info_errors[d] / c.total_info_bits
+                     for d in c.info_errors}
+        _log(f"[{what}] mimo_4x8_cdl {ebno} dB, {G_main} blocks x (1 cal + 1 "
+             f"decode) rounds: cal errors {pt.cal_bit_errors} / "
+             f"{pt.cal_total_bits}")
+        _log(f"[{what}] decode round: uncoded errors {c.bit_errors} / "
+             f"{c.total_bits}, info errors {c.info_errors} / "
+             f"{c.total_info_bits}, frame errors {c.frame_errors} / "
+             f"{c.ldpc_codewords}")
+        _log(f"[{what}] uncoded BER {ber} coded BER {ber_coded}")
+        _log(f"[{what}] BP iterations {c.ldpc_iter_sum} unconverged "
+             f"{c.ldpc_unconverged} of {c.ldpc_codewords} codewords per "
+             f"detector")
+        _log(f"[{what}] phases ms "
+             f"{json.dumps({k: round(v, 3) for k, v in phases.items()})} wall"
+             f" {1e3 * wall:.3f} ms | detected symbols/s "
+             f"{det_syms / (phases['cal'] / 1e3):.1f} | e2e decoded symbols/s"
+             f" {2 * det_syms / wall:.1f} | launches {launches}")
+        for d in ber:
+            _check(0.0 < ber[d] < 0.5, f"{d} uncoded BER {ber[d]} not in "
+                                       f"(0, 0.5)")
+            _check(0.0 <= ber_coded[d] < 0.5, f"{d} coded BER {ber_coded[d]}")
+        _check(ber_coded["mmse"] <= ber["mmse"],
+               "MMSE coded BER above its uncoded BER")
+        _check(c.ldpc_codewords == G_main * D * cfg.channel.n_tx,
+               "unexpected codeword count")
+        return wall, launches
+
+    wall, _ = flagship("main", ("bp_decode", "esn_predict", "esn_states"))
+    # the JAX package's own switch to the grouped-readout kernel
+    os.environ["ESN_TPU_PREDICT_READOUT"] = "grouped"
+    try:
+        _, la_g = flagship("main grouped", ("bp_decode", "esn_states",
+                                            "esn_predict_grouped"))
+    finally:
+        del os.environ["ESN_TPU_PREDICT_READOUT"]
+    _check(la_g["esn_predict"] == 0,
+           f"the grouped run still launched K2: {la_g}")
 
     if "--profile" in sys.argv[1:]:
         _profile_main_path(
-            lambda: cdl_snr_point(cfg, ebno, keys[0], keys[1]), 1e3 * wall)
+            "main", lambda: cdl_snr_point(cfg, ebno, keys[0], keys[1]),
+            1e3 * wall)
+        _profile_main_path(
+            "nbf main 12 dB",
+            lambda: nbf_snr_point(nbf, 12.0, nbf_keys[12.0]),
+            1e3 * nbf_wall[12.0])
 
-    # ---- 6. result lines ----------------------------------------------------
-    order = ("bp_decode", "esn_predict")
+    # ---- 8. result lines ----------------------------------------------------
+    for name, n in launches_total.items():
+        kernels[name]["launches"] = n
+    order = ("bp_decode", "esn_predict", "esn_states", "esn_predict_grouped")
     keys_out = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
@@ -327,7 +627,7 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def _profile_main_path(run, wall_ms: float) -> None:
+def _profile_main_path(what: str, run, wall_ms: float) -> None:
     """Device time by kernel over one main-path run under torch.profiler,
     and the share of the unprofiled run's wall time `wall_ms` the device
     was busy (kernels run on one stream, so their times add)."""
@@ -348,12 +648,12 @@ def _profile_main_path(run, wall_ms: float) -> None:
             per[e.name][0] += e.time_range.elapsed_us() / 1e3
             per[e.name][1] += 1
     busy = sum(v[0] for v in per.values())
-    _log(f"[profile] device kernels {busy:.3f} ms in "
+    _log(f"[profile {what}] device kernels {busy:.3f} ms in "
          f"{sum(v[1] for v in per.values())} launches = "
-         f"{100 * busy / wall_ms:.1f}% of the unprofiled main-path wall "
+         f"{100 * busy / wall_ms:.1f}% of the unprofiled wall "
          f"{wall_ms:.3f} ms")
     for name, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:15]:
-        _log(f"[profile] {ms:10.3f} ms {n:6d}x {name[:100]}")
+        _log(f"[profile {what}] {ms:10.3f} ms {n:6d}x {name[:100]}")
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@
 // Design. The TPU layout (128 codewords on lanes, sublane rolls, one exit per
 // 128-codeword tile) is not carried over:
 //   * one codeword per thread block, one thread per lifted check row
-//     (i, z'), dv*Z threads (256 at n=512). The static cyclic routing
+//     (i, z'), dv*Z threads (256 at n=512, 1,024 at n=2048, where the
+//     shared memory is exactly 48 KB). The static cyclic routing
 //     becomes dc per-thread edge indices v_j = j*Z + (z' - s[i][j]) mod Z
 //     computed once;
 //   * messages never leave the SM: a check's own dc messages stay in
@@ -51,8 +52,13 @@ constexpr int kDc = 8;  // check degree of every code the presets build
 
 enum Algo { kSumProd = 0, kMinSum = 1, kOffsetMinSum = 2 };
 
+// Up to 1,024 threads a block (dv * Z = 4 * 256 at the n = 2048 code of the
+// block-fading presets): the bound keeps nvcc at <= 64 registers a thread,
+// or such a launch would be refused for too many resources.
+constexpr int kMaxThreads = 1024;
+
 template <int DC>
-__global__ void bp_flooding_kernel(
+__global__ void __launch_bounds__(kMaxThreads) bp_flooding_kernel(
     const float* __restrict__ llr,       // (B, n) pipeline order
     const int* __restrict__ inv_perm,    // (n,) pipeline position of natural v
     const int* __restrict__ shifts,      // (dv, DC) circulant shifts
@@ -209,7 +215,7 @@ extern "C" int bp_decode_launch(const float* llr, const int* inv_perm,
                                 int dv, int dc, int k, int cap, int algo,
                                 float scale, float offset, void* stream) {
   if (B <= 0) return 0;
-  if (dv * Z > 1024 || dv * Z <= 0) return (int)cudaErrorInvalidValue;
+  if (dv * Z > kMaxThreads || dv * Z <= 0) return (int)cudaErrorInvalidValue;
   if (dc != kDc) return (int)cudaErrorInvalidValue;
   return launch<kDc>(llr, inv_perm, shifts, truth, info_cols, bits, err,
                      iters, conv, B, Z, dv, k, cap, algo, scale, offset,

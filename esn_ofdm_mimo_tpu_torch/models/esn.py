@@ -10,10 +10,11 @@ becomes a Python loop.
 Weights are stored transposed relative to pyESN (row-major `x @ W`):
     state' = tanh(s @ Wt + u @ W_in_t + d @ W_fb_t) + noise*(U(0,1)-0.5)
 
-`esn_predict` is the plain version of the CUDA predict kernel
-(models/esn_cuda.py). State noise comes from a `torch.Generator`: the JAX
-package draws it from its own stream (`rbg`), so only its distribution is
-shared.
+`esn_predict` is the plain version of the CUDA predict kernels
+(models/esn_cuda.py), `esn_states` that of the CUDA state-harvest kernel
+(models/esn_states_cuda.py). State noise comes from a `torch.Generator`:
+the JAX package draws it from its own stream (`rbg`), so only its
+distribution is shared.
 """
 from __future__ import annotations
 
@@ -87,7 +88,8 @@ def _state_noise(res: EsnReservoir, shape, like: torch.Tensor, generator):
 
 def esn_states(res: EsnReservoir, scale: EsnScale, inputs: torch.Tensor,
                teachers_scaled: torch.Tensor, generator=None) -> torch.Tensor:
-    """Teacher-forced state harvest (pyESN.fit:179-182).
+    """Teacher-forced state harvest (pyESN.fit:179-182). The plain version
+    of the CUDA state-harvest kernel.
 
     inputs (B, T, n_in) raw, teachers_scaled (B, T, n_out) -> states
     (B, T, n_res) with states[:, 0] == 0."""
@@ -139,19 +141,6 @@ def _readout_lstsq(ext: torch.Tensor, tgt: torch.Tensor,
     return extT @ z
 
 
-def esn_fit(res: EsnReservoir, scale: EsnScale, inputs: torch.Tensor,
-            outputs: torch.Tensor, n_forget: int, generator=None,
-            rel_jitter: float = 1e-7) -> torch.Tensor:
-    """Fit readouts for B sequences sharing one reservoir: inputs
-    (B, T, n_in), outputs (B, T, n_out) raw -> Wt_out (B, n_res + n_in,
-    n_out). The first n_forget rows are left out of the solve."""
-    teachers_scaled = outputs * scale.teacher_scaling
-    states = esn_states(res, scale, inputs, teachers_scaled, generator)
-    ext = torch.cat([states, scale_inputs(scale, inputs)], dim=-1)
-    return _readout_lstsq(ext[:, n_forget:], teachers_scaled[:, n_forget:],
-                          rel_jitter)
-
-
 def esn_predict(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
                 inputs: torch.Tensor, n_forget: int, generator=None
                 ) -> torch.Tensor:
@@ -185,12 +174,6 @@ def esn_predict(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
 
 def key_seed(key: torch.Tensor) -> int:
     """The 64-bit seed of a (2,) key: seeds the ESN state-noise stream
-    (a torch.Generator, or the CUDA kernel's Philox)."""
+    (a torch.Generator, or the CUDA kernels' Philox)."""
     k0, k1 = (int(x) for x in key.reshape(-1)[:2].tolist())
     return (k0 << 32) | k1
-
-
-def generator_for(key: torch.Tensor, device) -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed(key_seed(key))
-    return g

@@ -1,12 +1,15 @@
-"""Wrapper of the CUDA ESN predict kernel (csrc/esn_predict.cu).
+"""Wrapper of the CUDA ESN predict kernels: K2 (csrc/esn_predict.cu, per-row
+readout from L2) and K4 (csrc/esn_predict_grouped.cu, the tile's readout
+slots staged in shared memory).
 
-Counterpart of esn_ofdm_mimo_tpu/models/esn_pallas.py:esn_predict_pallas.
-For CUDA tensors it lays the operands out for the kernel — the stacked
-weight Wc = [Wt; W_in_t; W_fb_t] zero-padded to (K_pad, n_p), the scaled
-inputs time-major (T, n_in, B), the grouped readout (G, F, n_out) as is —
-and launches the whole T-step recurrence once on PyTorch's current stream.
-For CPU tensors it runs the plain version, models/esn.py:esn_predict. The
-kernel works in fp32 throughout, like the plain version.
+Counterpart of esn_ofdm_mimo_tpu/models/esn_pallas.py:esn_predict_pallas;
+`readout="grouped"` is its ESN_TPU_PREDICT_READOUT=grouped kernel. For CUDA
+tensors it lays the operands out for the kernel — the stacked weight Wc =
+[Wt; W_in_t; W_fb_t] zero-padded to (K_pad, n_p), the scaled inputs
+time-major (T, n_in, B), the grouped readout (G, F, n_out) as is — and
+launches the whole T-step recurrence once on PyTorch's current stream. For
+CPU tensors it runs the plain version, models/esn.py:esn_predict, for either
+readout. The kernels work in fp32 throughout, like the plain version.
 
 State noise: the kernel draws it from Philox seeded with `seed`; the plain
 version from a torch.Generator seeded with the same value. The streams
@@ -22,32 +25,49 @@ import torch
 from ..utils import build
 from .esn import EsnReservoir, EsnScale, esn_predict, scale_inputs
 
-# Launches of the kernel since the count was last reset (by the caller).
+# Launches of K2 and of K4 since the counts were last reset (by the caller).
 launches = 0
+launches_grouped = 0
 
 _N_RES_MAX = 640     # n_p = n_res rounded up to 64, at most 10 x 64
 _N_OUT_MAX = 32
 
 
+_SOURCES = {"per_row": "esn_predict", "grouped": "esn_predict_grouped"}
+
+
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = build.load("esn_predict")
-    lib.esn_predict_k_pad.argtypes = [ctypes.c_int] * 3
-    lib.esn_predict_k_pad.restype = ctypes.c_int
-    fn = lib.esn_predict_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib
+def _lib(readout: str):
+    """(k_pad, launch) of K2 (readout "per_row") or K4 ("grouped")."""
+    name = _SOURCES[readout]
+    lib = build.load(name)
+    k_pad, launch = (getattr(lib, f"{name}_k_pad"),
+                     getattr(lib, f"{name}_launch"))
+    k_pad.argtypes = [ctypes.c_int] * 3
+    launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong,
+                          ctypes.c_void_p])
+    k_pad.restype = launch.restype = ctypes.c_int
+    return k_pad, launch
 
 
-def stacked_weights(res: EsnReservoir, n_in: int, n_out: int, K_pad: int
-                    ) -> torch.Tensor:
+def grouped_slots(G: int, Dg: int) -> int:
+    """Readouts a 64-row kernel tile over runs of Dg rows can touch: the JAX
+    package's P = min(G, BC // Dg + 2) at the port's tile of 64 rows."""
+    return min(G, 64 // Dg + 2)
+
+
+def grouped_viable(G: int, Dg: int) -> bool:
+    """The JAX package's condition for its grouped kernel: Dg > 1, P <= 4."""
+    return Dg > 1 and grouped_slots(G, Dg) <= 4
+
+
+def stacked_weights(res: EsnReservoir, n_in: int, n_out: int, K_pad: int,
+                    n_p: int | None = None) -> torch.Tensor:
     """Wc (K_pad, n_p): rows [Wt; W_in_t; W_fb_t], columns = neurons, zero
-    padded (n_p = n_res rounded up to 64)."""
+    padded (n_p defaults to n_res rounded up to 64)."""
     n_res = res.Wt.shape[0]
-    n_p = -(-n_res // 64) * 64
+    n_p = -(-n_res // 64) * 64 if n_p is None else n_p
     Wc = torch.zeros(K_pad, n_p, dtype=torch.float32, device=res.Wt.device)
     Wc[:n_res, :n_res] = res.Wt
     Wc[n_res:n_res + n_in, :n_res] = res.W_in_t
@@ -57,11 +77,15 @@ def stacked_weights(res: EsnReservoir, n_in: int, n_out: int, K_pad: int
 
 def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
                      Wt_out: torch.Tensor, inputs: torch.Tensor,
-                     n_forget: int, seed: int = 0) -> torch.Tensor:
+                     n_forget: int, seed: int = 0,
+                     readout: str = "per_row") -> torch.Tensor:
     """Drop-in for models/esn.esn_predict: inputs (B, T, n_in) raw,
     Wt_out (G, n_res + n_in, n_out) grouped (B % G == 0) -> (B, T -
-    n_forget, n_out) unscaled outputs."""
-    global launches
+    n_forget, n_out) unscaled outputs. readout="grouped" launches K4 and
+    needs grouped_viable(G, B // G)."""
+    global launches, launches_grouped
+    if readout not in _SOURCES:
+        raise ValueError(f"unknown readout {readout!r}")
     if inputs.device.type == "cpu":
         gen = torch.Generator(device="cpu")
         gen.manual_seed(int(seed))
@@ -83,19 +107,25 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
             f"Wt_out {tuple(Wt_out.shape)}, n_res {n_res}, n_forget "
             f"{n_forget} (needs B % G == 0, F == n_res + n_in, n_res <= "
             f"{_N_RES_MAX}, n_out <= {_N_OUT_MAX})")
-    lib = _lib()
-    K_pad = lib.esn_predict_k_pad(n_res, n_in, n_out)
-    Wc = stacked_weights(res, n_in, n_out, K_pad)
+    if readout == "grouped" and not grouped_viable(G, B // G):
+        raise ValueError(f"the grouped readout kernel needs Dg > 1 and P <= "
+                         f"4; got Dg={B // G}, P={grouped_slots(G, B // G)}")
+    k_pad, launch = _lib(readout)
+    Wc = stacked_weights(res, n_in, n_out, k_pad(n_res, n_in, n_out))
     u_fm = scale_inputs(scale, inputs).permute(1, 2, 0).contiguous()
     wout = Wt_out.contiguous()
     out = torch.empty(B, T - n_forget, n_out, dtype=torch.float32,
                       device=inputs.device)
-    rc = lib.esn_predict_launch(
+    rc = launch(
         u_fm.data_ptr(), Wc.data_ptr(), wout.data_ptr(), out.data_ptr(),
         B, T, n_res, n_in, n_out, B // G, n_forget, float(res.noise),
         float(scale.teacher_scaling), int(seed) & (2**64 - 1),
         torch.cuda.current_stream(inputs.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"esn_predict_launch failed: CUDA error {rc}")
-    launches += 1
+        raise RuntimeError(f"ESN predict ({readout}) launch failed: CUDA "
+                           f"error {rc}")
+    if readout == "grouped":
+        launches_grouped += 1
+    else:
+        launches += 1
     return out

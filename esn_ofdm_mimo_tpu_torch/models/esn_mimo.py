@@ -10,19 +10,23 @@ libs/helper_mimo_esn_generic.py:5-86 and OFDM_SISO_NBF_LDPC.py:430-448).
   * detection: predict, keep rows [0, N), recombine re + im, FFT/N, divide
     by sqrt(Pi).
 
-Detection runs the CUDA predict kernel for CUDA tensors and its plain
-version for CPU tensors (models/esn_cuda.py). The fit stays on the plain
-recurrence, as the JAX package keeps it on its XLA scan.
+The fit's state harvest runs the CUDA states kernel (K3,
+models/esn_states_cuda.py), as the JAX package's fit does under
+ESN_TPU_IMPL=pallas; detection runs the CUDA predict kernel (K2, or K4
+under the JAX package's own switch ESN_TPU_PREDICT_READOUT=grouped where its
+condition holds; models/esn_cuda.py). CPU tensors run the plain versions.
 """
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
 import torch.nn.functional as Fn
 
-from .esn import EsnReservoir, EsnScale, esn_fit
-from .esn_cuda import esn_predict_cuda
+from .esn import EsnReservoir, EsnScale, _readout_lstsq, scale_inputs
+from .esn_cuda import esn_predict_cuda, grouped_viable
+from .esn_states_cuda import esn_states_cuda
 
 
 def _interleave_reim(z: torch.Tensor) -> torch.Tensor:
@@ -55,10 +59,17 @@ def build_esn_input(y_cp: torch.Tensor, delay: int) -> torch.Tensor:
 
 def train_mimo_esn(res: EsnReservoir, scale: EsnScale, y_cp: torch.Tensor,
                    x_cp: torch.Tensor, delay: int, cp_len: int,
-                   generator=None) -> torch.Tensor:
-    """Fit readouts for B coherence blocks -> Wt_out (B, F, 2*n_tx)."""
+                   seed: int = 0) -> torch.Tensor:
+    """Fit readouts for B coherence blocks -> Wt_out (B, F, 2*n_tx): states
+    (K3 on the card), then the scaled inputs appended, then the ridge solve
+    on rows [n_forget:] (JAX esn_mimo.train_mimo_esn, its Pallas branch).
+    `seed` seeds the state noise."""
     X_in, X_out = build_esn_io(y_cp, x_cp, delay)
-    return esn_fit(res, scale, X_in, X_out, delay + cp_len, generator)
+    n_forget = delay + cp_len
+    teachers_scaled = X_out * scale.teacher_scaling
+    states = esn_states_cuda(res, scale, X_in, teachers_scaled, seed)
+    ext = torch.cat([states, scale_inputs(scale, X_in)], dim=-1)
+    return _readout_lstsq(ext[:, n_forget:], teachers_scaled[:, n_forget:])
 
 
 def esn_detect_symbols(res: EsnReservoir, scale: EsnScale,
@@ -67,10 +78,15 @@ def esn_detect_symbols(res: EsnReservoir, scale: EsnScale,
                        seed: int = 0) -> torch.Tensor:
     """One OFDM symbol per row: y_cp (B, n_rx, N+cp) -> X_hat (B, N, n_tx).
     Wt_out may be grouped, (G, F, n_out) with B % G == 0 (readout g serves
-    the contiguous run of B//G rows)."""
+    the contiguous run of B//G rows). With ESN_TPU_PREDICT_READOUT=grouped
+    and Dg > 1, P <= 4 the card runs K4 instead of K2."""
     N = n_subcarriers
     X_in = build_esn_input(y_cp, delay)
-    pred = esn_predict_cuda(res, scale, Wt_out, X_in, delay + cp_len, seed)
+    G = Wt_out.shape[0]
+    grouped = (os.environ.get("ESN_TPU_PREDICT_READOUT") == "grouped"
+               and grouped_viable(G, X_in.shape[0] // G))
+    pred = esn_predict_cuda(res, scale, Wt_out, X_in, delay + cp_len, seed,
+                            readout="grouped" if grouped else "per_row")
     x_hat_td = _deinterleave_reim(pred[:, :N])             # (B, n_tx, N)
     X_hat = torch.fft.fft(x_hat_td, dim=-1) / N / power_scale
     return X_hat.transpose(-1, -2)

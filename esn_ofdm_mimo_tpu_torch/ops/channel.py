@@ -11,7 +11,10 @@ Port of esn_ofdm_mimo_tpu/ops/channel.py (the main-path subset):
     FIR convolution truncated to the input length (not circular), summed
     over TX antennas. The JAX package evaluates it as a zero-padded DFT
     product; here it is the direct isi-term sum.
-  * exp_pdp — the exponential power-delay profile the TD-MMSE estimator uses.
+  * exp_pdp, draw_exp_pdp_taps — the one-sided exponential power-delay
+    profile (reference OFDM_SISO_NBF_LDPC.py:162-164) and the block-fading
+    taps CN(0, pdp) drawn from it (:272-279);
+  * awgn — complex noise with the reference's length-scaled std.
 """
 from __future__ import annotations
 
@@ -68,6 +71,31 @@ def exp_pdp(isi_duration: int, device=None) -> torch.Tensor:
                            device=device)
 
 
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def draw_exp_pdp_taps(keys: torch.Tensor, n_rx: int, n_tx: int,
+                      isi_duration: int) -> torch.Tensor:
+    """keys (..., 2) -> (..., n_rx, n_tx, isi) complex64 taps c ~ CN(0, pdp)
+    per link, from the same normals as the JAX package at the same keys."""
+    sqrt_pdp = torch.sqrt(exp_pdp(isi_duration, keys.device))
+    shape = (n_rx, n_tx, isi_duration)
+    kri = rng.split(keys)
+    return torch.complex(rng.normal(kri[..., 0, :], shape) / _SQRT2 * sqrt_pdp,
+                         rng.normal(kri[..., 1, :], shape) / _SQRT2 * sqrt_pdp)
+
+
+def awgn(keys: torch.Tensor, shape, noise_psd: float, seq_len: int
+         ) -> torch.Tensor:
+    """keys (..., 2) -> (..., *shape) complex64 AWGN, std per real dimension
+    sqrt(seq_len * No / 2): total power seq_len * No, so the time-domain SNR
+    matches var_x = 10^(EbNo/10) * No * N (reference :309, :425)."""
+    std = float(np.sqrt(np.float32(seq_len * noise_psd / 2.0)))
+    kri = rng.split(keys)
+    return torch.complex(std * rng.normal(kri[..., 0, :], shape),
+                         std * rng.normal(kri[..., 1, :], shape))
+
+
 @functools.lru_cache(maxsize=None)
 def _tdl_split_matrix(profile: str, isi_duration: int, sample_rate_hz: float,
                       delay_spread_ns: float) -> np.ndarray:
@@ -100,9 +128,8 @@ def draw_tdl_taps(keys: torch.Tensor, n_rx: int, n_tx: int,
         device=dev)
     shape = (n_rx, n_tx, sqrt_pow.shape[0])
     kri = rng.split(keys)
-    sqrt2 = float(np.float32(np.sqrt(2.0)))
-    gr = rng.normal(kri[..., 0, :], shape) / sqrt2 * sqrt_pow
-    gi = rng.normal(kri[..., 1, :], shape) / sqrt2 * sqrt_pow
+    gr = rng.normal(kri[..., 0, :], shape) / _SQRT2 * sqrt_pow
+    gi = rng.normal(kri[..., 1, :], shape) / _SQRT2 * sqrt_pow
     h = torch.complex(gr @ split, gi @ split)
     power = (h.abs() ** 2).sum(-1, keepdim=True)
     return h / torch.sqrt(torch.clamp_min(power, 1e-30))

@@ -11,6 +11,10 @@ key.
 
 The link budget (var_x, Pi, sqrt(Pi), A_clip, No/Pi) is evaluated in
 float32, as the JAX package evaluates it with a traced float32 Eb/N0.
+
+Channels: exp_pdp (block fading) and cdl_a/b/c. Detectors: "esn" (matched
+ESN), "esn_fixed" (ESN trained at EsnConfig.train_ebno_fixed_db), "zf_perfect"
+(ZF on the true channel), "zf_ls" (ZF on the LS estimate), "mmse".
 """
 from __future__ import annotations
 
@@ -21,35 +25,26 @@ import torch
 
 from ..config import SimConfig
 from ..ldpc import ldpc_encode
-from ..models.esn import EsnReservoir, EsnScale, init_reservoir, \
-    generator_for, key_seed
+from ..models.esn import EsnReservoir, EsnScale, init_reservoir, key_seed
 from ..models.esn_mimo import train_mimo_esn, esn_detect_symbols
-from ..ops import (apply_fir_channel, bits_to_symbols, draw_tdl_taps,
-                   estimate_channel, ofdm_demodulate, ofdm_modulate,
-                   taps_to_freq_response)
+from ..ops import (apply_fir_channel, awgn, bits_to_symbols,
+                   draw_exp_pdp_taps, draw_tdl_taps, estimate_channel,
+                   ofdm_demodulate, ofdm_modulate, taps_to_freq_response)
 from ..ops.equalize import apply_equalizer, equalizer_weights
 from ..ops.pa import clip_amplitude, rapp_pa
 from ..utils import rng
 
 # purpose tags folded into block keys (the JAX package's values)
 _K_CHAN, _K_PBITS, _K_PNOISE, _K_ESNFIT = 1, 2, 3, 5
-_K_DBITS, _K_DNOISE, _K_DETECT = 8, 9, 10
+_K_PNOISE_F, _K_ESNFIT_F, _K_DBITS, _K_DNOISE, _K_DETECT = 6, 7, 8, 9, 10
 _K_RESERVOIR = 11
+
+DETECTORS = ("esn", "esn_fixed", "zf_perfect", "zf_ls", "mmse")
 
 
 def _vbits(keys: torch.Tensor, shape) -> torch.Tensor:
     """Per-block random bits: keys (B, 2) -> (B, *shape) int8."""
     return rng.bernoulli(keys, 0.5, shape).to(torch.int8)
-
-
-def _vawgn(keys: torch.Tensor, shape, noise_psd: float, seq_len: int
-           ) -> torch.Tensor:
-    """Per-block complex AWGN, std per real dimension sqrt(seq_len*No/2)
-    (reference OFDM_SISO_NBF_LDPC.py:309,425)."""
-    std = float(np.sqrt(np.float32(seq_len * noise_psd / 2.0)))
-    kri = rng.split(keys)
-    return torch.complex(std * rng.normal(kri[..., 0, :], shape),
-                         std * rng.normal(kri[..., 1, :], shape))
 
 
 class LinkBudget(NamedTuple):
@@ -69,6 +64,17 @@ def link_budget(cfg: SimConfig, ebno_db: float) -> LinkBudget:
                       clip_amplitude(var_x, cfg.pa.clip_level_db))
 
 
+def fixed_link_budget(cfg: SimConfig) -> LinkBudget:
+    """The budget at the fixed ESN training Eb/N0, a static float the JAX
+    package evaluates in double before its float32 sqrt (:233-235)."""
+    No, N = cfg.ofdm.noise_psd, cfg.ofdm.n_subcarriers
+    var_f = 10.0 ** (cfg.esn.train_ebno_fixed_db / 10.0) * No * N
+    pi_f = np.float32(var_f / N)
+    return LinkBudget(float(np.float32(var_f)), float(pi_f),
+                      float(np.sqrt(pi_f)),
+                      clip_amplitude(var_f, cfg.pa.clip_level_db))
+
+
 def _f32(x) -> float:
     return float(np.float32(x))
 
@@ -81,17 +87,31 @@ class BlockState(NamedTuple):
     H_mmse: torch.Tensor      # (B, N, n_rx, n_tx)
     reservoir: EsnReservoir   # shared across the batch
     scale_m: EsnScale         # SNR-matched input scaling
+    scale_f: EsnScale | None  # fixed-training-SNR scaling (None if off)
     Wt_out_m: torch.Tensor    # (B, F, 2*n_tx) matched readout
+    Wt_out_f: torch.Tensor | None  # fixed-SNR readout
 
 
 def _check_supported(cfg: SimConfig):
     if cfg.esn.rng_mode != "batch":
         raise NotImplementedError("rng_mode='block' is not ported yet")
-    if cfg.channel.kind not in ("cdl_a", "cdl_b", "cdl_c"):
+    if cfg.channel.kind not in ("exp_pdp", "cdl_a", "cdl_b", "cdl_c"):
         raise NotImplementedError(
             f"channel kind {cfg.channel.kind!r} is not ported yet")
     if cfg.channel.flat_scalar_ls:
         raise NotImplementedError("flat_scalar_ls is not ported yet")
+    if not cfg.ldpc.enabled:
+        raise NotImplementedError("uncoded runs (ldpc.enabled=False) are "
+                                  "not ported yet")
+
+
+def _draw_taps(cfg: SimConfig, keys: torch.Tensor) -> torch.Tensor:
+    ch, ofdm = cfg.channel, cfg.ofdm
+    if ch.kind == "exp_pdp":
+        return draw_exp_pdp_taps(keys, ch.n_rx, ch.n_tx, ofdm.isi_duration)
+    return draw_tdl_taps(keys, ch.n_rx, ch.n_tx, ofdm.isi_duration,
+                         ofdm.sample_rate_hz, ch.delay_spread_ns,
+                         profile=ch.kind[-1])
 
 
 def _tx_chain(cfg: SimConfig, X: torch.Tensor, lb: LinkBudget
@@ -117,9 +137,9 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
                 ) -> BlockState:
     """Channel draw, pilot synthesis, channel estimation and ESN training
     for B blocks (reference OFDM_SISO_NBF_LDPC.py:270-384). bkeys (B, 2).
-
-    The fixed-SNR second ESN (EsnConfig.train_ebno_fixed_db, detector
-    "esn_fixed") is not ported yet; the CDL pipeline does not use it."""
+    With EsnConfig.train_ebno_fixed_db set, a second ESN is trained on the
+    same pilot re-synthesised at that Eb/N0 (:347-357, detector
+    "esn_fixed")."""
     _check_supported(cfg)
     ofdm, esn_cfg, ch = cfg.ofdm, cfg.esn, cfg.channel
     N, cp, isi = ofdm.n_subcarriers, ofdm.cp_len, ofdm.isi_duration
@@ -127,9 +147,7 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
     T = N + cp
     lb = link_budget(cfg, ebno_db)
 
-    taps = draw_tdl_taps(rng.fold_in(bkeys, _K_CHAN), n_rx, n_tx, isi,
-                         ofdm.sample_rate_hz, ch.delay_spread_ns,
-                         profile=ch.kind[-1])
+    taps = _draw_taps(cfg, rng.fold_in(bkeys, _K_CHAN))
     H_true = taps_to_freq_response(taps, N)
 
     pbits = _vbits(rng.fold_in(bkeys, _K_PBITS), (n_tx, N * mp))
@@ -143,8 +161,7 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
     x_tgt = _esn_target(cfg, x_cp, x_clean)
     x_ls_cp, _ = _tx_chain(cfg, X_ls, lb)
     # the same noise realisation on the full and comb pilots (:309-311)
-    noise = _vawgn(rng.fold_in(bkeys, _K_PNOISE), (n_rx, T), ofdm.noise_psd,
-                   T)
+    noise = awgn(rng.fold_in(bkeys, _K_PNOISE), (n_rx, T), ofdm.noise_psd, T)
     y_cp = apply_fir_channel(taps, x_cp) + noise
     y_ls_cp = apply_fir_channel(taps, x_ls_cp) + noise
 
@@ -158,16 +175,32 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
                          2 * n_tx, esn_cfg.n_reservoir,
                          esn_cfg.spectral_radius, esn_cfg.sparsity,
                          esn_cfg.noise)
-    scale_m = EsnScale(
-        input_scaling=_f32(np.float32(esn_cfg.input_scaler)
-                           / np.sqrt(np.float32(lb.var_x))),
-        input_shift=_f32(esn_cfg.input_offset / esn_cfg.input_scaler),
-        teacher_scaling=_f32(esn_cfg.teacher_scaling))
-    gen = generator_for(rng.fold_in(bkeys[0], _K_ESNFIT), dev)
-    Wt_out_m = train_mimo_esn(res, scale_m, y_cp, x_tgt,
-                              esn_cfg.shared_delay(isi), cp, gen)
+    delay = esn_cfg.shared_delay(isi)
+
+    def fit(budget, y, x, tag):
+        scale = EsnScale(
+            input_scaling=_f32(np.float32(esn_cfg.input_scaler)
+                               / np.sqrt(np.float32(budget.var_x))),
+            input_shift=_f32(esn_cfg.input_offset / esn_cfg.input_scaler),
+            teacher_scaling=_f32(esn_cfg.teacher_scaling))
+        seed = key_seed(rng.fold_in(bkeys[0], tag))
+        return scale, train_mimo_esn(res, scale, y, x, delay, cp, seed)
+
+    scale_m, Wt_out_m = fit(lb, y_cp, x_tgt, _K_ESNFIT)
+    scale_f = Wt_out_f = None
+    if esn_cfg.train_ebno_fixed_db is not None:
+        # the same pilot and channel, re-synthesised at the fixed training
+        # Eb/N0 with its own noise draw (:347-357)
+        lb_f = fixed_link_budget(cfg)
+        x_cp_f, x_clean_f = _tx_chain(cfg, X_p, lb_f)
+        y_cp_f = apply_fir_channel(taps, x_cp_f) + awgn(
+            rng.fold_in(bkeys, _K_PNOISE_F), (n_rx, T), ofdm.noise_psd, T)
+        scale_f, Wt_out_f = fit(lb_f, y_cp_f,
+                                _esn_target(cfg, x_cp_f, x_clean_f),
+                                _K_ESNFIT_F)
     return BlockState(taps=taps, H_true=H_true, H_ls=H_ls, H_mmse=H_mmse,
-                      reservoir=res, scale_m=scale_m, Wt_out_m=Wt_out_m)
+                      reservoir=res, scale_m=scale_m, scale_f=scale_f,
+                      Wt_out_m=Wt_out_m, Wt_out_f=Wt_out_f)
 
 
 class DataSymbols(NamedTuple):
@@ -179,15 +212,16 @@ class DataSymbols(NamedTuple):
 
 def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
                         bkeys: torch.Tensor, code_bits: torch.Tensor,
-                        detectors: Tuple[str, ...] = ("esn", "mmse")
+                        detectors: Tuple[str, ...] = DETECTORS
                         ) -> DataSymbols:
     """D data symbols through TX -> channel -> detectors
     (reference OFDM_SISO_NBF_LDPC.py:387-460). code_bits (B, D, n_tx, N*m).
-    Detectors: "esn" (CUDA predict kernel / its plain version) and "mmse"."""
-    unknown = set(detectors) - {"esn", "mmse"}
+    The ESN detectors run the CUDA predict kernel (or its plain version on
+    the CPU); "esn_fixed" only where the block state has a fixed-SNR
+    readout."""
+    unknown = set(detectors) - set(DETECTORS)
     if unknown:
-        raise NotImplementedError(f"detectors {sorted(unknown)} are not "
-                                  "ported yet")
+        raise ValueError(f"unknown detectors {sorted(unknown)}")
     ofdm = cfg.ofdm
     N, cp, m = ofdm.n_subcarriers, ofdm.cp_len, ofdm.bits_per_symbol
     n_tx, n_rx = cfg.channel.n_tx, cfg.channel.n_rx
@@ -197,25 +231,37 @@ def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
 
     X = bits_to_symbols(code_bits, m)                       # (B, D, n_tx, N)
     x_cp, _ = _tx_chain(cfg, X, lb)
-    noise = _vawgn(rng.fold_in(bkeys, _K_DNOISE), (D, n_rx, T),
-                   ofdm.noise_psd, T)
+    noise = awgn(rng.fold_in(bkeys, _K_DNOISE), (D, n_rx, T), ofdm.noise_psd,
+                 T)
     y_cp = apply_fir_channel(state.taps[:, None], x_cp) + noise
     Y = ofdm_demodulate(y_cp, cp)                           # (B, D, n_rx, N)
 
-    X_hat = {}
-    if "esn" in detectors:
+    def esn(scale, Wt_out, tag):
         # rows are block-major (D symbols per block), so the (B, F, n_out)
         # readout passes grouped: row r uses readout r // D
-        seed = key_seed(rng.fold_key(bkeys[0], _K_DETECT, 0))
+        seed = key_seed(rng.fold_key(bkeys[0], _K_DETECT, tag))
         Xh = esn_detect_symbols(
-            state.reservoir, state.scale_m, state.Wt_out_m,
-            y_cp.reshape(B * D, n_rx, T), cfg.esn.shared_delay(
-                ofdm.isi_duration), cp, N, lb.sqrt_pi, seed)
-        X_hat["esn"] = Xh.reshape(B, D, N, n_tx)
+            state.reservoir, scale, Wt_out, y_cp.reshape(B * D, n_rx, T),
+            cfg.esn.shared_delay(ofdm.isi_duration), cp, N, lb.sqrt_pi, seed)
+        return Xh.reshape(B, D, N, n_tx)
+
+    # the channel is block-constant: each equaliser is solved once per
+    # (block, subcarrier) and applied to all D symbols
+    def equalize(H, reg):
+        return apply_equalizer(equalizer_weights(H, reg), Y, lb.sqrt_pi)
+
+    X_hat = {}
+    if "esn" in detectors:
+        X_hat["esn"] = esn(state.scale_m, state.Wt_out_m, 0)
+    if "esn_fixed" in detectors and state.Wt_out_f is not None:
+        X_hat["esn_fixed"] = esn(state.scale_f, state.Wt_out_f, 1)
+    if "zf_perfect" in detectors:
+        X_hat["zf_perfect"] = equalize(state.H_true, _f32(1e-12))
+    if "zf_ls" in detectors:
+        X_hat["zf_ls"] = equalize(state.H_ls, _f32(1e-12))
     if "mmse" in detectors:
-        reg = _f32(np.float32(ofdm.noise_psd) / np.float32(lb.pi))
-        W = equalizer_weights(state.H_mmse, reg)
-        X_hat["mmse"] = apply_equalizer(W, Y, lb.sqrt_pi)
+        X_hat["mmse"] = equalize(
+            state.H_mmse, _f32(np.float32(ofdm.noise_psd) / np.float32(lb.pi)))
     return DataSymbols(X_true=X.transpose(-1, -2), Y=Y, X_hat=X_hat)
 
 

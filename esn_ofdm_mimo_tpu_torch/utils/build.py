@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each kernel is one source under `csrc/` with a plain C interface. `nvcc`
-compiles it for Hopper (`-gencode arch=compute_90a,code=sm_90a`) into a
-shared library under the package's `build/` directory (git-ignored); the
-library name carries a hash of the source and flags, so an edited source
-is rebuilt and an unchanged one is reused. Nothing is built at import:
+Each kernel is one source under `csrc/` with a plain C interface (sources
+may share headers, `csrc/*.cuh`). `nvcc` compiles it for Hopper
+(`-gencode arch=compute_90a,code=sm_90a`) into a shared library under the
+package's `build/` directory (git-ignored); the library name carries a hash
+of the source, the headers and the flags, so an edited source is rebuilt
+and an unchanged one is reused. Nothing is built at import:
 `load()` builds on the first launch, and `build_all()` starts every nvcc
 at once (one process per source) for callers that want the whole set up
 front.
@@ -30,6 +31,8 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_FLAGS = {
     "bp_decode": ("--fmad=false",),
     "esn_predict": (),
+    "esn_predict_grouped": (),
+    "esn_states": (),
 }
 
 _LIBS: dict = {}
@@ -51,7 +54,8 @@ def _flags(name: str):
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD / f"lib{name}-{h[:12]}.so"
 

@@ -22,7 +22,9 @@ def test_port_imports_with_jax_blocked():
             "import esn_ofdm_mimo_tpu_torch.parallel, "
             "esn_ofdm_mimo_tpu_torch.utils.convert, "
             "esn_ofdm_mimo_tpu_torch.ldpc.decode_cuda, "
-            "esn_ofdm_mimo_tpu_torch.models.esn_cuda\n"
+            "esn_ofdm_mimo_tpu_torch.models.esn_cuda, "
+            "esn_ofdm_mimo_tpu_torch.models.esn_states_cuda, "
+            "esn_ofdm_mimo_tpu_torch.pipelines.blockfading\n"
             "import torch\n"
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
             "assert not torch.backends.cudnn.allow_tf32\n"
