@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's four CUDA kernels from esn_ofdm_mimo_tpu_torch/csrc/ (one
+Builds the port's six CUDA kernels from esn_ofdm_mimo_tpu_torch/csrc/ (one
 nvcc per source, all started together; sm_90a), then:
 
   1. prints the card (nvidia-smi name and power limit) and the build time;
@@ -12,9 +12,9 @@ nvcc per source, all started together; sm_90a), then:
      identical bits, iterations, converged flags and counts for offset
      min-sum (the flagship rule) and normalised min-sum; sum-product within
      the agreement band of the JAX package's own kernel test;
-     [K1-nbf] the same for offset min-sum on 12,800 codewords of the
-     mimo_4x8_nbf code (n = 2048, 1,024 threads a block) under the
-     iteration caps 100 and 200;
+     [K1-nbf] the same for the mimo_4x8_nbf preset's own rule
+     (sum-product) on 12,800 codewords of its code (n = 2048, 1,024
+     threads a block) under the iteration caps 100 and 200;
   3. K2, the ESN predict recurrence (csrc/esn_predict.cu), against its plain
      version at the flagship detect shape (9,472 rows, T = 138, n_res = 300,
      128 readouts of 74 rows): noise 0 within atol 1e-4 / rtol 1e-3, noise
@@ -25,6 +25,17 @@ nvcc per source, all started together; sm_90a), then:
      flagship fit shape (128 x 138 x 300), the same tolerances;
   5. K4, the grouped-readout predict (csrc/esn_predict_grouped.cu), against
      plain grouped esn_predict and against K2 at the flagship detect shape;
+     [K1-layered] the row-layered BP decoder (csrc/bp_decode_layered.cu)
+     against plain layered BP on the same codewords as K1 (cap 50) and
+     K1-nbf (caps 50 and 100): identical for both min-sum rules,
+     sum-product (the NBF preset's rule) in the band; then layered at cap
+     50 against flooding at
+     cap 100 (BER, unconverged share, ms per sweep);
+     [K5] every ablation build of the predict recurrence
+     (csrc/esn_predict_ablate.cu) against its plain version at the
+     micro-benchmark's shape (9,472 rows, one readout per row), then the
+     micro-benchmark itself (tools/bench_micro_torch.py, group pred), one
+     line per variant;
   6. small reference checks: tiny CDL and tiny NBF configurations through
      `cdl_snr_point` / `nbf_snr_point` on the GPU (kernels) and on the CPU
      (plain versions), classical-detector counters within a few bit flips;
@@ -38,6 +49,17 @@ nvcc per source, all started together; sm_90a), then:
        decode round at 12 dB: K1, K2 and K3 launched;
        [main grouped] the same flagship point with
        ESN_TPU_PREDICT_READOUT=grouped: K4 launched;
+       [curve] the CLI, esn_ofdm_mimo_tpu_torch.experiments.run.main, on
+       mimo_4x8_cdl at 9, 12 and 15 dB, 256 blocks per SNR in rounds of 128
+       with the adaptive top-up and checkpoints: K1, K2, K3 launched, the
+       artifacts written and parsed, MMSE coded BER non-increasing; a second
+       call with --resume launches nothing and writes the same CSV; then
+       `run_cdl_curve` on the same keys with flooding at max_iter 100 and
+       with LdpcConfig(schedule="layered", max_iter=50): the layered kernel
+       launched and the flooding one not, MMSE coded BER in the flooding
+       run's band, decode ms of both;
+       [curve nbf] the CLI on mimo_4x8_nbf at 3 and 12 dB, 128 blocks:
+       artifacts written, BERs equal to `nbf_snr_point` on the same keys;
   8. one JSON line listing the kernels (launches on the main paths, error
      against the plain version, times, bound), then the card line and the
      final {"ok": true, ...} line.
@@ -51,9 +73,13 @@ busy share of each run's wall time.
 """
 from __future__ import annotations
 
+import csv
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
@@ -91,8 +117,6 @@ def _entry(name, source, replaces, err, ms, plain_ms, n_bytes, ops):
 
 
 def main() -> None:
-    import os
-
     import torch
 
     if not torch.cuda.is_available():
@@ -108,15 +132,29 @@ def main() -> None:
     from esn_ofdm_mimo_tpu_torch.models.esn import (EsnScale, esn_predict,
                                                     esn_states,
                                                     init_reservoir)
-    from esn_ofdm_mimo_tpu_torch.parallel import cdl_snr_point, nbf_snr_point
+    import dataclasses
+
+    from esn_ofdm_mimo_tpu_torch.experiments import run as cli
+    from esn_ofdm_mimo_tpu_torch.models.esn import (ABLATE_PARTS,
+                                                    esn_predict_ablate)
+    from esn_ofdm_mimo_tpu_torch.parallel import (cdl_snr_point,
+                                                  nbf_snr_point,
+                                                  run_cdl_curve)
+    from esn_ofdm_mimo_tpu_torch.pipelines.common import DETECTORS
     from esn_ofdm_mimo_tpu_torch.utils import build, rng
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import bench_micro_torch as micro
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     counters = ((decode_cuda, "launches", "bp_decode"),
+                (decode_cuda, "launches_layered", "bp_decode_layered"),
                 (esn_cuda, "launches", "esn_predict"),
                 (esn_states_cuda, "launches", "esn_states"),
-                (esn_cuda, "launches_grouped", "esn_predict_grouped"))
+                (esn_cuda, "launches_grouped", "esn_predict_grouped"),
+                (esn_cuda, "launches_ablate", "esn_predict_ablate"))
 
     def reset_counts():
         for mod, attr, _ in counters:
@@ -273,8 +311,8 @@ def main() -> None:
     for cap in (nbf.ldpc.max_iter, 2 * nbf.ldpc.max_iter):
         it_n, conv_n = k1_identical(code_n, llr_n, u_n, f"K1-nbf cap {cap}",
                                     iter_cap=cap, **kw_n)
-        _log(f"[K1-nbf cap {cap}] {llr_n.shape[0]} codewords of n = "
-             f"{code_n.n} at Eb/N0 1.0/1.5 dB: bits, iterations, converged, "
+        _log(f"[K1-nbf cap {cap}] {nbf.ldpc.algo}, {llr_n.shape[0]} "
+             f"codewords of n = {code_n.n} at Eb/N0 1.0/1.5 dB: bits, iterations, converged, "
              f"counts identical | mean iterations {it_n / llr_n.shape[0]:.3f}"
              f" converged {conv_n:.4f}")
     k1n_ms = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
@@ -431,6 +469,152 @@ def main() -> None:
          f"{k2_plain_ms:.3f} ms, bound "
          f"{kernels['esn_predict_grouped']['bound_ms']:.4f} ms")
     del pg, pk, pp, inputs
+
+    # ---- 5b. K1-layered: the layered BP decoder vs its plain version --------
+    kw_l = dict(kw, schedule="layered", max_iter=50)
+    itl_sum, convl_frac = k1_identical(code, llr, u, "K1-layered", **kw_l)
+    k1l_ms = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
+        code, llr, u, **kw_l), 3)
+    k1l_plain_ms = cuda_ms(lambda: ldpc_decode_bp_plain(
+        code, llr, count_against=u, **kw_l), 1)
+    for algo, exact in (("minsum", True), ("sumprod", False)):
+        kwa = dict(kw_l, algo=algo)
+        bk, sk = decode_cuda.ldpc_decode_bp_cuda(code, llr[sub], **kwa)
+        bp, sp = ldpc_decode_bp_plain(code, llr[sub], **kwa)
+        sync()
+        agree = float((bk == bp).float().mean())
+        it_agree = float((sk["iterations"] == sp["iterations"]).float().mean())
+        cv_agree = float((sk["converged"] == sp["converged"]).float().mean())
+        _log(f"[K1-layered {algo}] bit agreement {agree} iterations "
+             f"{it_agree} converged {cv_agree}")
+        if exact:
+            _check(agree == 1.0 and it_agree == 1.0 and cv_agree == 1.0,
+                   f"K1-layered {algo} differs from the plain version")
+        else:
+            _check(agree > 0.999 and it_agree > 0.9 and cv_agree > 0.95,
+                   f"K1-layered {algo} outside the agreement band")
+    kernels["bp_decode_layered"] = _entry(
+        "bp_decode_layered", "bp_decode_layered.cu",
+        "esn_ofdm_mimo_tpu/ldpc/decode_pallas.py:254",
+        0.0, k1l_ms, k1l_plain_ms, *k1_work(code, llr, u, itl_sum))
+    _log(f"[K1-layered offset-minsum] {llr.shape[0]} codewords at Eb/N0 "
+         f"1.5/2.5 dB, cap 50: bits, iterations, converged, counts identical "
+         f"| mean sweeps {itl_sum / llr.shape[0]:.3f} converged "
+         f"{convl_frac:.4f} | kernel {k1l_ms:.3f} ms plain "
+         f"{k1l_plain_ms:.3f} ms bound "
+         f"{kernels['bp_decode_layered']['bound_ms']:.4f} ms")
+    for cap_l in (50, 100):
+        for algo in ("offset-minsum", "minsum"):
+            kwn_l = dict(kw_n, schedule="layered", max_iter=100,
+                         iter_cap=cap_l, algo=algo)
+            itn_l, convn_l = k1_identical(
+                code_n, llr_n, u_n, f"K1-layered nbf {algo} cap {cap_l}",
+                **kwn_l)
+            k1ln_ms = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
+                code_n, llr_n, u_n, **kwn_l), 2)
+            k1ln_bound, _ = _bound(*k1_work(code_n, llr_n, u_n, itn_l))
+            _log(f"[K1-layered nbf cap {cap_l}] {algo}, {llr_n.shape[0]} "
+                 f"codewords of n = {code_n.n}: bits, iterations, converged, "
+                 f"counts identical | mean sweeps "
+                 f"{itn_l / llr_n.shape[0]:.3f} converged {convn_l:.4f} | "
+                 f"kernel {k1ln_ms:.3f} ms bound {k1ln_bound:.4f} ms")
+    # the NBF preset's own rule, sum-product (libm's tanh/atanh against
+    # torch's): the agreement band, and its time
+    kwn_s = dict(kw_n, schedule="layered", max_iter=100)
+    bk, sk = decode_cuda.ldpc_decode_bp_cuda(code_n, llr_n, **kwn_s)
+    bp, sp = ldpc_decode_bp_plain(code_n, llr_n, **kwn_s)
+    sync()
+    agree = float((bk == bp).float().mean())
+    it_agree = float((sk["iterations"] == sp["iterations"]).float().mean())
+    cv_agree = float((sk["converged"] == sp["converged"]).float().mean())
+    _check(agree > 0.999 and it_agree > 0.9 and cv_agree > 0.95,
+           "K1-layered nbf sum-product outside the agreement band")
+    k1ls_ms = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
+        code_n, llr_n, u_n, **kwn_s), 2)
+    _log(f"[K1-layered nbf cap 100] {nbf.ldpc.algo}: bit agreement {agree} "
+         f"iterations {it_agree} converged {cv_agree} | mean sweeps "
+         f"{float(sk['iterations'].float().mean()):.3f} converged "
+         f"{float(sk['converged'].float().mean()):.4f} | kernel "
+         f"{k1ls_ms:.3f} ms")
+
+    # layered at cap 50 against flooding at cap 100, the same codewords: the
+    # band of the JAX package's schedule test
+    def sched_stats(schedule, max_iter):
+        err, st = decode_cuda.ldpc_decode_bp_cuda_counts(
+            code, llr, u, max_iter=max_iter, algo=cfg.ldpc.algo,
+            minsum_offset=cfg.ldpc.minsum_offset, schedule=schedule)
+        conv = st["converged"]
+        return (float(err.sum()) / u.numel(),
+                float(st["iterations"][conv].float().mean()),
+                float(conv.float().mean()))
+    ber_f, itc_f, conv_f = sched_stats("flooding", 100)
+    ber_l, itc_l, conv_l = sched_stats("layered", 50)
+    sync()
+    per_f = k1_ms / (it_sum / llr.shape[0])
+    per_l = k1l_ms / (itl_sum / llr.shape[0])
+    _log(f"[K1-layered vs flooding] layered cap 50: BER {ber_l:.4e} "
+         f"unconverged {1 - conv_l:.4f} mean sweeps of converged "
+         f"{itc_l:.3f} | flooding cap 100: BER {ber_f:.4e} unconverged "
+         f"{1 - conv_f:.4f} mean iterations of converged {itc_f:.3f} | ms "
+         f"per mean sweep: layered {per_l:.4f}, flooding {per_f:.4f} "
+         f"(ratio {per_l / per_f:.3f}); whole decode {k1l_ms:.3f} vs "
+         f"{k1_ms:.3f} ms")
+    _check(ber_l <= ber_f * 1.25 + 2e-3 and conv_l >= conv_f - 0.02
+           and itc_l <= 0.65 * itc_f,
+           "layered at cap 50 does not track flooding at cap 100")
+
+    # ---- 5c. K5: the ablation builds vs their plain versions ----------------
+    # Operands: K2's reservoir with the feedback weights at a tenth. With
+    # the readout switched off the raw state s'[:n_out] is fed back, and at
+    # full feedback weight that loop amplifies rounding differences over the
+    # 138 steps beyond the tolerance (1.4e-3 measured), in either version.
+    B5 = G * cfg.data_symbols_per_block
+    res5 = res._replace(W_fb_t=0.1 * res.W_fb_t)
+    noisy5 = res5._replace(noise=1e-3)
+    x5 = torch.randn(B5, T, res.W_in_t.shape[0], generator=gen, device=dev)
+    W5 = 0.02 * torch.randn(B5, Wt_out.shape[1], Wt_out.shape[2],
+                            generator=gen, device=dev)   # one readout per row
+    k5_err, k5 = 0.0, {}
+    for off in esn_cuda.ABLATE_BUILDS:
+        sw = {p: p not in off for p in ABLATE_PARTS}
+        label = "full" if not off else "floor" if len(off) > 1 else \
+            f"no {next(iter(off))}"
+        out_k = esn_cuda.esn_predict_ablate_cuda(res5, scale, W5, x5, 0, 0,
+                                                 **sw)
+        out_p = esn_predict_ablate(res5, scale, W5, x5, 0, None, **sw)
+        err = close(out_k, out_p, f"K5 {label}")
+        k5_err = max(k5_err, err)
+        if sw["noise"]:
+            noise_band(
+                esn_cuda.esn_predict_ablate_cuda(noisy5, scale, W5, x5, 0,
+                                                 12345, **sw),
+                esn_predict_ablate(noisy5, scale, W5, x5, 0, gn, **sw), out_p,
+                f"K5 {label}")
+        ms = cuda_ms(lambda: esn_cuda.esn_predict_ablate_cuda(
+            noisy5, scale, W5, x5, 0, 12345, **sw), 2)
+        plain_ms = cuda_ms(lambda: esn_predict_ablate(
+            noisy5, scale, W5, x5, 0, gn, **sw), 1)
+        # K2's count less what each switch removes
+        n_res5, n_in5, n_out5 = res.Wt.shape[0], x5.shape[2], W5.shape[2]
+        per_step = ((2 * n_res5 * n_res5 if sw["recurrence_dot"] else n_res5)
+                    + 2 * n_res5 * n_in5
+                    + (2 * n_res5 * n_out5 if sw["feedback"] else 0)
+                    + (n_res5 if sw["tanh"] else n_res5)
+                    + (2 * (n_res5 + n_in5) * n_out5 if sw["readout"] else 0))
+        n_bytes = 4 * (x5.numel() + out_k.numel()
+                       + (W5.numel() if sw["readout"] else 0)
+                       + n_res5 * ((n_res5 if sw["recurrence_dot"] else 0)
+                                   + n_in5
+                                   + (n_out5 if sw["feedback"] else 0)))
+        k5[label] = (err, ms, plain_ms, n_bytes, float(B5) * T * per_step)
+        b_ms, b_by = _bound(*k5[label][3:])
+        _log(f"[K5 {label}] rows {B5} T {T} n_res {n_res5}: max abs err "
+             f"{err:.3e} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+             f"{b_ms:.4f} ms ({b_by})")
+    kernels["esn_predict_ablate"] = _entry(
+        "esn_predict_ablate", "esn_predict_ablate.cu",
+        "tools/bench_micro.py:147", k5_err, *k5["full"][1:])
+    del x5, W5, out_k, out_p
 
     # ---- 6. small reference checks: GPU kernels vs CPU plain versions ------
     root = rng.prng_key(0)
@@ -603,6 +787,157 @@ def main() -> None:
     _check(la_g["esn_predict"] == 0,
            f"the grouped run still launched K2: {la_g}")
 
+    # the micro-benchmark's predict group: the path that launches K5
+    _, _, _, la_5 = count_run(
+        lambda ph: micro.run_pred_variants(G_main, dev, rounds=4),
+        ("esn_predict_ablate",), "micro-benchmark pred")
+    _log(f"[K5 path] tools/bench_micro_torch.py pred, {G_main} blocks: "
+         f"launches {la_5}")
+
+    # the curve entry point: the CLI on the flagship preset
+    def read_csv(path):
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        return rows[0], [[float(x) for x in r] for r in rows[1:]]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_c = os.path.join(tmp, "cdl")
+        argv = ["--preset", "mimo_4x8_cdl", "--ebno-list", "9,12,15",
+                "--blocks-per-device", "128", "--blocks-per-snr", "256",
+                "--adaptive-min-errors", "2000", "--adaptive-max-blocks",
+                "256", "--outdir", out_c, "--resume"]
+        _, _, wall_c, la_c = count_run(
+            lambda ph: cli.main(argv),
+            ("bp_decode", "esn_predict", "esn_states"), "curve")
+        head, rows = read_csv(os.path.join(out_c, "results_ber.csv"))
+        _check(head == ["EbNo(dB)", "ESN_uncoded", "MMSE_uncoded",
+                        "ESN_coded", "MMSE_coded"]
+               and [r[0] for r in rows] == [9.0, 12.0, 15.0],
+               f"curve: unexpected results_ber.csv {head} {rows}")
+        with open(os.path.join(out_c, "results_ber.pkl"), "rb") as f:
+            bundle = pickle.load(f)
+        _check(bundle["EBN0"] == [9.0, 12.0, 15.0]
+               and bundle["BER_coded"]["MMSE_calLLR"] == [r[4] for r in rows],
+               "curve: results_ber.pkl disagrees with the CSV")
+        for e in (9, 12, 15):
+            with open(os.path.join(
+                    out_c, f"LLR_calibration_params_EbNo{e}dB.txt")) as f:
+                cal = f.read().splitlines()
+            _check(cal[0] == "bit, a_esn, b_esn, a_mmse, b_mmse"
+                   and len(cal) == 1 + cfg.ofdm.bits_per_symbol
+                   and all(len(x.split(", ")) == 5 for x in cal[1:]),
+                   f"curve: calibration file of {e} dB malformed")
+        with open(os.path.join(out_c, "events.jsonl")) as f:
+            events = [json.loads(x) for x in f]
+        msgs = [e.get("msg", "") for e in events]
+        _check(events[0]["event"] == "run_start"
+               and events[-1]["event"] == "run_done",
+               "curve: events.jsonl lacks run_start / run_done")
+        topped = [m for m in msgs if "adaptive" in m]
+        for r in rows:
+            _check(0.0 < r[1] < 0.5 and 0.0 < r[2] < 0.5,
+                   f"curve: uncoded BER not in (0, 0.5): {r}")
+        _check(rows[0][4] >= rows[1][4] >= rows[2][4],
+               f"curve: MMSE coded BER rises with Eb/N0: {rows}")
+        _check(len(topped) > 0, "curve: no SNR point was topped up although "
+               "the target of 2000 failed codewords is out of reach at 15 dB")
+        _log(f"[curve] CLI mimo_4x8_cdl 9/12/15 dB, 256 blocks per SNR in "
+             f"rounds of 128, adaptive to 256 decoded blocks: wall "
+             f"{1e3 * wall_c:.1f} ms | launches {la_c}")
+        for r in rows:
+            _log(f"[curve] EbNo {r[0]:g} dB: uncoded esn {r[1]:.4e} mmse "
+                 f"{r[2]:.4e} | coded esn {r[3]:.4e} mmse {r[4]:.4e}")
+        for m in topped:
+            _log(f"[curve] {m}")
+        # resumed: every SNR point comes from its checkpoint
+        csv_first = open(os.path.join(out_c, "results_ber.csv"), "rb").read()
+        _, _, wall_r, la_r = count_run(lambda ph: cli.main(argv), (),
+                                       "curve resume")
+        _check(not any(la_r.values()),
+               f"curve: the resumed call launched kernels: {la_r}")
+        _check(open(os.path.join(out_c, "results_ber.csv"), "rb").read()
+               == csv_first, "curve: the resumed call wrote another CSV")
+        _log(f"[curve] second call with --resume: no launch, the same CSV, "
+             f"{1e3 * wall_r:.1f} ms")
+
+        # flooding at max_iter 100 against layered at max_iter 50, same keys
+        cfg_c = dataclasses.replace(cfg, ebno_db=(9.0, 12.0, 15.0))
+        cfg_l = dataclasses.replace(cfg_c, ldpc=dataclasses.replace(
+            cfg.ldpc, schedule="layered", max_iter=50))
+        sched = {}
+        for name, c_s, need, absent in (
+                ("flooding", cfg_c, "bp_decode", "bp_decode_layered"),
+                ("layered", cfg_l, "bp_decode_layered", "bp_decode")):
+            res_s, ph_s, wall_s, la_s = count_run(
+                lambda ph: run_cdl_curve(c_s, 256, blocks_per_round=128,
+                                         progress=None, timings=ph),
+                (need, "esn_predict", "esn_states"), f"curve {name}")
+            _check(la_s[absent] == 0,
+                   f"curve {name}: the other BP kernel was launched: {la_s}")
+            sched[name] = (res_s, ph_s)
+            _log(f"[curve {name}] run_cdl_curve max_iter {c_s.ldpc.max_iter}:"
+                 f" MMSE coded "
+                 f"{[r['ber_coded']['mmse'] for r in res_s]} avg iterations "
+                 f"{[round(r['ldpc_avg_iters']['mmse'], 3) for r in res_s]} "
+                 f"unconverged "
+                 f"{[r['ldpc_unconverged_frac']['mmse'] for r in res_s]} | "
+                 f"phases ms "
+                 f"{json.dumps({k: round(v, 3) for k, v in ph_s.items()})} "
+                 f"wall {1e3 * wall_s:.1f} ms | launches {la_s}")
+        for r_f, r_l in zip(sched["flooding"][0], sched["layered"][0]):
+            b_f, b_l = r_f["ber_coded"]["mmse"], r_l["ber_coded"]["mmse"]
+            _check(r_f["ber_uncoded"] == r_l["ber_uncoded"],
+                   "curve: the schedules saw different uncoded errors")
+            _check(b_l <= 1.25 * b_f + 2e-3 and b_f <= 1.25 * b_l + 2e-3,
+                   f"curve: layered MMSE coded BER {b_l} outside the band of "
+                   f"flooding's {b_f} at {r_f['ebno_db']} dB")
+        dec_f = sched["flooding"][1]["decode"]
+        dec_l = sched["layered"][1]["decode"]
+        _log(f"[curve] decode ms over the 3 SNR points: flooding (max_iter "
+             f"100) {dec_f:.3f}, layered (max_iter 50) {dec_l:.3f}, ratio "
+             f"{dec_l / dec_f:.3f}")
+
+        # the block-fading curve: the CLI on mimo_4x8_nbf at 3 and 12 dB
+        out_n = os.path.join(tmp, "nbf")
+        _, _, wall_cn, la_cn = count_run(
+            lambda ph: cli.main(
+                ["--preset", "mimo_4x8_nbf", "--ebno-list", "3,12",
+                 "--blocks-per-device", "128", "--blocks-per-snr", "128",
+                 "--outdir", out_n]),
+            ("bp_decode", "esn_predict", "esn_states"), "curve nbf")
+        head_n, rows_n = read_csv(os.path.join(out_n, "results_ber.csv"))
+        with open(os.path.join(out_n, "channel_metrics_4x8.pkl"), "rb") as f:
+            met = pickle.load(f)
+        _check(met["EBN0"] == [3.0, 12.0]
+               and all(x > 0 for x in met["capacity_bits_per_sc"])
+               and len(met["cond_number"]["p50"]) == 2,
+               f"curve nbf: channel_metrics_4x8.pkl malformed: {met}")
+        dets = sorted(DETECTORS)
+        _check(head_n == ["EbNo(dB)"] + [f"{d}_uncoded" for d in dets]
+               + [f"{d}_coded" for d in dets],
+               f"curve nbf: unexpected CSV header {head_n}")
+        for jj, (ebno_c, row) in enumerate(zip((3.0, 12.0), rows_n)):
+            kj = rng.block_keys(rng.prng_key(nbf.seed), jj,
+                                torch.arange(G_nbf)).reshape(1, G_nbf, 2)
+            pt_c = nbf_snr_point(nbf, ebno_c, kj)
+            for i, d in enumerate(dets):
+                want_u = pt_c.bit_errors[d] / pt_c.total_bits
+                want_c = pt_c.info_errors[d] / pt_c.total_info_bits
+                # the same kernels on the same inputs; a band of 0.1% for
+                # the ESN detectors in case a library call is not
+                # run-to-run deterministic
+                tol = 1e-3 if d.startswith("esn") else 0.0
+                _check(abs(row[1 + i] - want_u) <= tol * want_u
+                       and abs(row[1 + len(dets) + i] - want_c)
+                       <= tol * want_c,
+                       f"curve nbf {ebno_c} dB {d}: CSV "
+                       f"{row[1 + i], row[1 + len(dets) + i]} against "
+                       f"nbf_snr_point's {want_u, want_c}")
+        _log(f"[curve nbf] CLI mimo_4x8_nbf 3/12 dB, 128 blocks: "
+             f"results_ber.csv and channel_metrics_4x8.pkl written, BERs "
+             f"equal to nbf_snr_point on the same keys | wall "
+             f"{1e3 * wall_cn:.1f} ms | launches {la_cn}")
+
     if "--profile" in sys.argv[1:]:
         _profile_main_path(
             "main", lambda: cdl_snr_point(cfg, ebno, keys[0], keys[1]),
@@ -615,7 +950,8 @@ def main() -> None:
     # ---- 8. result lines ----------------------------------------------------
     for name, n in launches_total.items():
         kernels[name]["launches"] = n
-    order = ("bp_decode", "esn_predict", "esn_states", "esn_predict_grouped")
+    order = ("bp_decode", "bp_decode_layered", "esn_predict", "esn_states",
+             "esn_predict_grouped", "esn_predict_ablate")
     keys_out = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")

@@ -35,22 +35,18 @@
 //     +-16; posterior Lt = Lc + (((R0 + R1) + R2) + R3) over the base rows in
 //     order; min-sum keeps an online (min, second min, first argmin). Built
 //     with --fmad=false, the two min-sum rules match the plain version bit
-//     for bit; sum-product differs by the libraries' tanh/atanh ulps;
+//     for bit; sum-product differs by the libraries' tanh/atanh ulps (the
+//     check rules are in bp_common.cuh, shared with the layered kernel);
 //   * the natural-order permutation is fused: LLRs are read from pipeline
 //     order through inv_perm and bits written back the same way; counts mode
 //     compares the info columns against the truth in the kernel and writes
 //     one count per codeword (no (n, B) bits tensor at all).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bp_common.cuh"
 
 namespace {
 
-constexpr float kMsgClip = 16.0f;
-constexpr float kSpClip = 0.9999999f;
-constexpr int kDc = 8;  // check degree of every code the presets build
-
-enum Algo { kSumProd = 0, kMinSum = 1, kOffsetMinSum = 2 };
+using namespace bp;
 
 // Up to 1,024 threads a block (dv * Z = 4 * 256 at the n = 2048 code of the
 // block-fading presets): the bound keeps nvcc at <= 64 registers a thread,
@@ -111,48 +107,8 @@ __global__ void __launch_bounds__(kMaxThreads) bp_flooding_kernel(
     float q[DC];
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      q[j] = fminf(fmaxf(Lt[vj[j]] - r[j], -kMsgClip), kMsgClip);
-    if (algo == kSumProd) {
-      float t[DC];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) t[j] = tanhf(0.5f * q[j]);
-      float fwd[DC];
-      fwd[0] = 1.0f;
-#pragma unroll
-      for (int j = 1; j < DC; ++j) fwd[j] = fwd[j - 1] * t[j - 1];
-      float bwd = 1.0f;
-#pragma unroll
-      for (int j = DC - 1; j >= 0; --j) {
-        float p = fminf(fmaxf(fwd[j] * bwd, -kSpClip), kSpClip);
-        r[j] = 2.0f * atanhf(p);
-        bwd = bwd * t[j];
-      }
-    } else {
-      float sprod = 1.0f;
-      float m1 = fabsf(q[0]);
-      float m2 = __int_as_float(0x7f800000);  // +inf
-      int arg = 0;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) sprod = sprod * (q[j] < 0.0f ? -1.0f : 1.0f);
-#pragma unroll
-      for (int j = 1; j < DC; ++j) {
-        float a = fabsf(q[j]);
-        if (a < m1) {
-          m2 = m1;
-          m1 = a;
-          arg = j;
-        } else {
-          m2 = fminf(m2, a);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        float s = sprod * (q[j] < 0.0f ? -1.0f : 1.0f);  // leave-one-out sign
-        float loo = fminf(j == arg ? m2 : m1, kMsgClip);
-        r[j] = (algo == kOffsetMinSum) ? s * fmaxf(loo - offset, 0.0f)
-                                       : scale * s * loo;
-      }
-    }
+      q[j] = clip_msg(Lt[vj[j]] - r[j]);
+    check_update<DC>(q, r, algo, scale, offset);
     __syncthreads();  // every read of Lt is done
 #pragma unroll
     for (int j = 0; j < DC; ++j) R[row * n + vj[j]] = r[j];
@@ -168,23 +124,8 @@ __global__ void __launch_bounds__(kMaxThreads) bp_flooding_kernel(
     ok = !syndrome_bad();
   }
 
-  if (tid == 0) {
-    iters[b] = ok ? it : cap;
-    conv[b] = ok ? 1 : 0;
-  }
-  if (err != nullptr) {
-    int total = 0;
-    const int8_t* tb = truth + (size_t)b * k;
-    for (int base = 0; base < k; base += nthr) {
-      int i = base + tid;
-      int bad = (i < k) && ((Lt[info_cols[i]] < 0.0f ? 1 : 0) != tb[i]);
-      total += __syncthreads_count(bad);
-    }
-    if (tid == 0) err[b] = total;
-  } else {
-    int8_t* ob = bits + (size_t)b * n;
-    for (int v = tid; v < n; v += nthr) ob[inv_perm[v]] = Lt[v] < 0.0f ? 1 : 0;
-  }
+  write_result(Lt, n, b, ok, it, cap, inv_perm, truth, info_cols, k, bits,
+               err, iters, conv);
 }
 
 template <int DC>

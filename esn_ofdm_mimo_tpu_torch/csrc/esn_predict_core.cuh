@@ -1,7 +1,10 @@
 // The fused ESN predict recurrence shared by esn_predict.cu (K2, per-row
 // readout from L2) and esn_predict_grouped.cu (K4, readout slots staged in
 // shared memory). The design notes are in those two files; this header holds
-// the one kernel both instantiate, templated on the readout.
+// the one kernel both instantiate, templated on the readout. A third template
+// argument, a mask of parts switched OFF, gives the ablation builds of
+// esn_predict_ablate.cu (K5); at its default of 0 every switch folds away at
+// compile time and K2 and K4 are compiled from the same statements as before.
 //
 // For every batch row it runs all T steps of
 //     s' = tanh(W s + [W_in | W_fb] [u_t; o]) + noise * (U - 0.5)
@@ -22,6 +25,19 @@ constexpr int kRowThreads = 16;  // threads along rows, 4 rows each
 constexpr int kKc = 16;          // Wc rows per staged chunk
 constexpr int kSlotPad = 8;      // floats between staged readout slots (banks)
 
+// Parts of the recurrence an ablation build leaves out (kOff mask bits), with
+// the micro-benchmark's meaning of each: no readout -> o = s'[:n_out]; no
+// feedback -> the W_fb o term dropped; no noise; no tanh -> s' = 0.5 * pre;
+// no recurrence product -> pre = s + W_in u (+ W_fb o). The wrapper zeroes
+// the weight rows of a dropped term, so a chunk that straddles it adds 0.
+enum Off {
+  kNoReadout = 1,
+  kNoFeedback = 2,
+  kNoNoise = 4,
+  kNoTanh = 8,
+  kNoRecDot = 16,
+};
+
 inline int k_pad(int n_res, int n_in, int n_out) {
   return (n_res + n_in + n_out + kKc - 1) / kKc * kKc;
 }
@@ -33,7 +49,7 @@ inline int grouped_slots(int G, int Dg) {
   return p < G ? p : G;
 }
 
-template <int NJ4, bool kGrouped>
+template <int NJ4, bool kGrouped, int kOff = 0>
 __global__ void __launch_bounds__(kThreads, NJ4 <= 5 && !kGrouped ? 2 : 1)
 predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
                const float* __restrict__ wc,    // (K_pad, n_p)
@@ -58,7 +74,7 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
   const int g0 = row0 / Dg;          // K4: the group of the tile's first row
 
   curandStatePhilox4_32_10_t rng;
-  if (noise != 0.0f) curand_init(seed, (unsigned long long)blockIdx.x * kThreads + tid, 0, &rng);
+  if (!(kOff & kNoNoise) && noise != 0.0f) curand_init(seed, (unsigned long long)blockIdx.x * kThreads + tid, 0, &rng);
 
   for (int i = tid; i < K_pad * kRows; i += kThreads) X[i] = 0.0f;
   if (kGrouped) {
@@ -83,17 +99,29 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
   load_u(0);
   __syncthreads();
 
+  // contraction rows [k_lo, k_hi) of Wc: all K_pad unless an ablation drops
+  // the recurrence product (whole chunks of Wt skipped) or the feedback
+  const int k_lo = (kOff & kNoRecDot) ? n_res / kKc * kKc : 0;
+  const int k_hi = (kOff & kNoFeedback) ? (F + kKc - 1) / kKc * kKc : K_pad;
+
   for (int t = 0; t < T; ++t) {
-    // ---- pre = Wc^T X over all K_pad contraction rows ----
+    // ---- pre = Wc^T X over the contraction rows ----
     float acc[NJ4][4][4];
 #pragma unroll
     for (int m = 0; m < NJ4; ++m)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[m][q][r] = 0.0f;
+        for (int r = 0; r < 4; ++r) {
+          if (kOff & kNoRecDot) {  // pre starts from s itself
+            const int j = m * 64 + ty * 4 + q;
+            acc[m][q][r] = j < n_res ? X[j * kRows + tx * 4 + r] : 0.0f;
+          } else {
+            acc[m][q][r] = 0.0f;
+          }
+        }
 
-    for (int k0 = 0; k0 < K_pad; k0 += kKc) {
+    for (int k0 = k_lo; k0 < k_hi; k0 += kKc) {
       const float4* src = reinterpret_cast<const float4*>(wc + (size_t)k0 * n_p);
       float4* dst = reinterpret_cast<float4*>(Ws);
       for (int i = tid; i < kKc * n_p / 4; i += kThreads) dst[i] = __ldg(src + i);
@@ -126,9 +154,15 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
       for (int q = 0; q < 4; ++q) {
         const int j = m * 64 + ty * 4 + q;
         if (j < n_res) {
-          float4 v = make_float4(tanhf(acc[m][q][0]), tanhf(acc[m][q][1]),
-                                 tanhf(acc[m][q][2]), tanhf(acc[m][q][3]));
-          if (noise != 0.0f) {
+          float4 v;
+          if (kOff & kNoTanh) {
+            v = make_float4(0.5f * acc[m][q][0], 0.5f * acc[m][q][1],
+                            0.5f * acc[m][q][2], 0.5f * acc[m][q][3]);
+          } else {
+            v = make_float4(tanhf(acc[m][q][0]), tanhf(acc[m][q][1]),
+                            tanhf(acc[m][q][2]), tanhf(acc[m][q][3]));
+          }
+          if (!(kOff & kNoNoise) && noise != 0.0f) {
             const float4 z = curand_uniform4(&rng);
             v.x += noise * (z.x - 0.5f);
             v.y += noise * (z.y - 0.5f);
@@ -147,7 +181,9 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
       const int row = row0 + r;
       if (row < B) {
         float o = 0.0f;
-        if (kGrouped) {
+        if (kOff & kNoReadout) {
+          o = X[k * kRows + r];
+        } else if (kGrouped) {
           const float* w = WO + (row / Dg - g0) * slot + k;
           for (int f = 0; f < F; ++f) o = fmaf(w[f * n_out], X[f * kRows + r], o);
         } else {
@@ -167,7 +203,7 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
   }
 }
 
-template <int NJ4, bool kGrouped>
+template <int NJ4, bool kGrouped, int kOff = 0>
 int launch(const float* u_fm, const float* wc, const float* wout, float* out,
            int B, int T, int n_res, int n_in, int n_out, int Dg, int n_forget,
            int K_pad, int P, float noise, float teacher_scaling,
@@ -175,12 +211,12 @@ int launch(const float* u_fm, const float* wc, const float* wout, float* out,
   size_t floats = (size_t)K_pad * kRows + (size_t)kKc * NJ4 * 64;
   if (kGrouped) floats += (size_t)P * ((n_res + n_in) * n_out + kSlotPad);
   const size_t smem = sizeof(float) * floats;
-  cudaError_t e = cudaFuncSetAttribute(predict_kernel<NJ4, kGrouped>,
+  cudaError_t e = cudaFuncSetAttribute(predict_kernel<NJ4, kGrouped, kOff>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (B + kRows - 1) / kRows;
-  predict_kernel<NJ4, kGrouped><<<blocks, kThreads, smem, stream>>>(
+  predict_kernel<NJ4, kGrouped, kOff><<<blocks, kThreads, smem, stream>>>(
       u_fm, wc, wout, out, B, T, n_res, n_in, n_out, Dg, n_forget, K_pad, P,
       noise, teacher_scaling, seed);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
-"""QC-LDPC codes: construction (host, cached), encoder, and the flooding BP
-decoder — CUDA kernel for CUDA tensors, plain PyTorch for CPU tensors."""
+"""QC-LDPC codes: construction (host, cached), encoder, and the BP decoder
+(flooding or row-layered schedule) — CUDA kernels for CUDA tensors, plain
+PyTorch for CPU tensors."""
 
 from .code import LdpcCode, QcInfo, make_qc_ldpc, make_code  # noqa: F401
 from .encode import ldpc_encode  # noqa: F401

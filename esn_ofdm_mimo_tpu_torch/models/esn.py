@@ -11,7 +11,8 @@ Weights are stored transposed relative to pyESN (row-major `x @ W`):
     state' = tanh(s @ Wt + u @ W_in_t + d @ W_fb_t) + noise*(U(0,1)-0.5)
 
 `esn_predict` is the plain version of the CUDA predict kernels
-(models/esn_cuda.py), `esn_states` that of the CUDA state-harvest kernel
+(models/esn_cuda.py), `esn_predict_ablate` that of their ablation builds,
+`esn_states` that of the CUDA state-harvest kernel
 (models/esn_states_cuda.py). State noise comes from a `torch.Generator`:
 the JAX package draws it from its own stream (`rbg`), so only its
 distribution is shared.
@@ -141,15 +142,23 @@ def _readout_lstsq(ext: torch.Tensor, tgt: torch.Tensor,
     return extT @ z
 
 
-def esn_predict(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
-                inputs: torch.Tensor, n_forget: int, generator=None
-                ) -> torch.Tensor:
-    """Outputs with self-feedback from zero state (pyESN.predict,
-    continuation=False). The plain version of the CUDA predict kernel.
+ABLATE_PARTS = ("readout", "feedback", "noise", "tanh", "recurrence_dot")
 
-    inputs (B, T, n_in) raw; Wt_out (G, F, n_out) grouped readouts with
-    B % G == 0: readout g serves rows [g*Dg, (g+1)*Dg), Dg = B // G.
-    Returns (B, T - n_forget, n_out) unscaled outputs."""
+
+def esn_predict_ablate(res: EsnReservoir, scale: EsnScale,
+                       Wt_out: torch.Tensor, inputs: torch.Tensor,
+                       n_forget: int, generator=None, *, readout: bool = True,
+                       feedback: bool = True, noise: bool = True,
+                       tanh: bool = True, recurrence_dot: bool = True
+                       ) -> torch.Tensor:
+    """The predict recurrence, each part of its step behind a switch. With
+    every part on (the default) it is `esn_predict`; with parts off it is
+    the plain version of the CUDA ablation builds, for attributing the
+    step's time (the JAX package's tools/bench_micro.py:_mk_kernel). What a
+    part computes when off: readout -> o = s'[:n_out]; feedback -> the
+    W_fb o term dropped; noise -> none; tanh -> s' = 0.5 * pre;
+    recurrence_dot -> pre = s + W_in u (+ W_fb o). Shapes as
+    `esn_predict`."""
     B, T, n_in = inputs.shape
     n_res = res.Wt.shape[0]
     G, _, n_out = Wt_out.shape
@@ -157,19 +166,39 @@ def esn_predict(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
     Dg = B // G
     u = scale_inputs(scale, inputs)
     Wt_s, Wt_u = Wt_out[:, :n_res], Wt_out[:, n_res:]
-    drive = u @ res.W_in_t                                  # (B, T, n_res)
+    drive = u @ res.W_in_t
     o_in = (u.reshape(G, Dg * T, n_in) @ Wt_u).reshape(B, T, n_out)
     s = torch.zeros(B, n_res, dtype=u.dtype, device=u.device)
     o = torch.zeros(B, n_out, dtype=u.dtype, device=u.device)
     outs = torch.empty(B, T, n_out, dtype=u.dtype, device=u.device)
     for t in range(T):
-        s = torch.tanh(s @ res.Wt + drive[:, t] + o @ res.W_fb_t)
-        z = _state_noise(res, s.shape, s, generator)
+        pre = (s @ res.Wt if recurrence_dot else s) + drive[:, t]
+        if feedback:
+            pre = pre + o @ res.W_fb_t
+        s = torch.tanh(pre) if tanh else 0.5 * pre
+        z = _state_noise(res, s.shape, s, generator) if noise else None
         if z is not None:
             s = s + z
-        o = (s.reshape(G, Dg, n_res) @ Wt_s).reshape(B, n_out) + o_in[:, t]
+        if readout:
+            o = ((s.reshape(G, Dg, n_res) @ Wt_s).reshape(B, n_out)
+                 + o_in[:, t])
+        else:
+            o = s[:, :n_out]
         outs[:, t] = o
     return outs[:, n_forget:] / scale.teacher_scaling
+
+
+def esn_predict(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
+                inputs: torch.Tensor, n_forget: int, generator=None
+                ) -> torch.Tensor:
+    """Outputs with self-feedback from zero state (pyESN.predict,
+    continuation=False). The plain version of the CUDA predict kernel: the
+    step of `esn_predict_ablate` with every part on.
+
+    inputs (B, T, n_in) raw; Wt_out (G, F, n_out) grouped readouts with
+    B % G == 0: readout g serves rows [g*Dg, (g+1)*Dg), Dg = B // G.
+    Returns (B, T - n_forget, n_out) unscaled outputs."""
+    return esn_predict_ablate(res, scale, Wt_out, inputs, n_forget, generator)
 
 
 def key_seed(key: torch.Tensor) -> int:

@@ -1,6 +1,8 @@
 """Wrapper of the CUDA ESN predict kernels: K2 (csrc/esn_predict.cu, per-row
-readout from L2) and K4 (csrc/esn_predict_grouped.cu, the tile's readout
-slots staged in shared memory).
+readout from L2), K4 (csrc/esn_predict_grouped.cu, the tile's readout
+slots staged in shared memory) and K5 (csrc/esn_predict_ablate.cu, builds of
+K2 with parts of the step switched off, for the micro-benchmark
+tools/bench_micro_torch.py; `esn_predict_ablate_cuda`).
 
 Counterpart of esn_ofdm_mimo_tpu/models/esn_pallas.py:esn_predict_pallas;
 `readout="grouped"` is its ESN_TPU_PREDICT_READOUT=grouped kernel. For CUDA
@@ -23,28 +25,41 @@ import functools
 import torch
 
 from ..utils import build
-from .esn import EsnReservoir, EsnScale, esn_predict, scale_inputs
+from .esn import (ABLATE_PARTS, EsnReservoir, EsnScale, esn_predict,
+                  esn_predict_ablate, scale_inputs)
 
-# Launches of K2 and of K4 since the counts were last reset (by the caller).
+# Launches of K2, of K4 and of K5 since the counts were last reset (by the
+# caller).
 launches = 0
 launches_grouped = 0
+launches_ablate = 0
 
 _N_RES_MAX = 640     # n_p = n_res rounded up to 64, at most 10 x 64
 _N_OUT_MAX = 32
 
 
-_SOURCES = {"per_row": "esn_predict", "grouped": "esn_predict_grouped"}
+_SOURCES = {"per_row": "esn_predict", "grouped": "esn_predict_grouped",
+            "ablate": "esn_predict_ablate"}
+# K5: the mask bit of each part (csrc/esn_predict_core.cuh, enum Off), the
+# sets of switched-off parts that are built, and the one reservoir width
+_OFF_BIT = {part: 1 << i for i, part in enumerate(ABLATE_PARTS)}
+ABLATE_BUILDS = (frozenset(),) + tuple(frozenset((p,)) for p in ABLATE_PARTS) \
+    + (frozenset(ABLATE_PARTS),)
+_ABLATE_NJ4 = 5
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(readout: str):
-    """(k_pad, launch) of K2 (readout "per_row") or K4 ("grouped")."""
+    """(k_pad, launch) of K2 (readout "per_row"), K4 ("grouped") or K5
+    ("ablate", whose launch takes the mask of switched-off parts after
+    n_forget)."""
     name = _SOURCES[readout]
     lib = build.load(name)
     k_pad, launch = (getattr(lib, f"{name}_k_pad"),
                      getattr(lib, f"{name}_launch"))
     k_pad.argtypes = [ctypes.c_int] * 3
-    launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    launch.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * (8 if readout == "ablate" else 7)
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong,
                           ctypes.c_void_p])
     k_pad.restype = launch.restype = ctypes.c_int
@@ -75,23 +90,10 @@ def stacked_weights(res: EsnReservoir, n_in: int, n_out: int, K_pad: int,
     return Wc
 
 
-def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
-                     Wt_out: torch.Tensor, inputs: torch.Tensor,
-                     n_forget: int, seed: int = 0,
-                     readout: str = "per_row") -> torch.Tensor:
-    """Drop-in for models/esn.esn_predict: inputs (B, T, n_in) raw,
-    Wt_out (G, n_res + n_in, n_out) grouped (B % G == 0) -> (B, T -
-    n_forget, n_out) unscaled outputs. readout="grouped" launches K4 and
-    needs grouped_viable(G, B // G)."""
-    global launches, launches_grouped
-    if readout not in _SOURCES:
-        raise ValueError(f"unknown readout {readout!r}")
-    if inputs.device.type == "cpu":
-        gen = torch.Generator(device="cpu")
-        gen.manual_seed(int(seed))
-        return esn_predict(res, scale, Wt_out, inputs, n_forget, gen)
-    if inputs.device.type != "cuda":
-        raise ValueError(f"unsupported device {inputs.device}")
+def _check_operands(res: EsnReservoir, Wt_out: torch.Tensor,
+                    inputs: torch.Tensor, n_forget: int):
+    """Raise on what the predict kernels do not take; returns (B, T, n_in,
+    n_res, G, n_out)."""
     B, T, n_in = inputs.shape
     n_res = res.Wt.shape[0]
     G, F, n_out = Wt_out.shape
@@ -107,6 +109,28 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
             f"Wt_out {tuple(Wt_out.shape)}, n_res {n_res}, n_forget "
             f"{n_forget} (needs B % G == 0, F == n_res + n_in, n_res <= "
             f"{_N_RES_MAX}, n_out <= {_N_OUT_MAX})")
+    return B, T, n_in, n_res, G, n_out
+
+
+def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
+                     Wt_out: torch.Tensor, inputs: torch.Tensor,
+                     n_forget: int, seed: int = 0,
+                     readout: str = "per_row") -> torch.Tensor:
+    """Drop-in for models/esn.esn_predict: inputs (B, T, n_in) raw,
+    Wt_out (G, n_res + n_in, n_out) grouped (B % G == 0) -> (B, T -
+    n_forget, n_out) unscaled outputs. readout="grouped" launches K4 and
+    needs grouped_viable(G, B // G)."""
+    global launches, launches_grouped
+    if readout not in ("per_row", "grouped"):
+        raise ValueError(f"unknown readout {readout!r}")
+    if inputs.device.type == "cpu":
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(int(seed))
+        return esn_predict(res, scale, Wt_out, inputs, n_forget, gen)
+    if inputs.device.type != "cuda":
+        raise ValueError(f"unsupported device {inputs.device}")
+    B, T, n_in, n_res, G, n_out = _check_operands(res, Wt_out, inputs,
+                                                  n_forget)
     if readout == "grouped" and not grouped_viable(G, B // G):
         raise ValueError(f"the grouped readout kernel needs Dg > 1 and P <= "
                          f"4; got Dg={B // G}, P={grouped_slots(G, B // G)}")
@@ -128,4 +152,58 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
         launches_grouped += 1
     else:
         launches += 1
+    return out
+
+
+def esn_predict_ablate_cuda(res: EsnReservoir, scale: EsnScale,
+                            Wt_out: torch.Tensor, inputs: torch.Tensor,
+                            n_forget: int, seed: int = 0, *,
+                            readout: bool = True, feedback: bool = True,
+                            noise: bool = True, tanh: bool = True,
+                            recurrence_dot: bool = True) -> torch.Tensor:
+    """models/esn.esn_predict_ablate on the card (K5): the predict
+    recurrence with the named parts switched off at compile time. Operands
+    as `esn_predict_cuda`; the micro-benchmark passes one readout per row
+    (G == B). Built for the sets in ABLATE_BUILDS (all on, one part off,
+    all off) and ceil(n_res / 64) == 5."""
+    global launches_ablate
+    on = dict(readout=readout, feedback=feedback, noise=noise, tanh=tanh,
+              recurrence_dot=recurrence_dot)
+    if inputs.device.type == "cpu":
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(int(seed))
+        return esn_predict_ablate(res, scale, Wt_out, inputs, n_forget, gen,
+                                  **on)
+    if inputs.device.type != "cuda":
+        raise ValueError(f"unsupported device {inputs.device}")
+    B, T, n_in, n_res, G, n_out = _check_operands(res, Wt_out, inputs,
+                                                  n_forget)
+    off = frozenset(p for p in ABLATE_PARTS if not on[p])
+    if off not in ABLATE_BUILDS or -(-n_res // 64) != _ABLATE_NJ4:
+        raise ValueError(
+            f"no ablation build for parts off {sorted(off)} at n_res "
+            f"{n_res}: built are all on, one part off, all off, for "
+            f"{64 * _ABLATE_NJ4 - 63} <= n_res <= {64 * _ABLATE_NJ4}")
+    k_pad, launch = _lib("ablate")
+    # a dropped term's weight rows are zeroed: the kernel skips whole chunks
+    # of them and a chunk that straddles the term adds nothing
+    zero = torch.zeros_like
+    res_k = res._replace(
+        Wt=res.Wt if recurrence_dot else zero(res.Wt),
+        W_fb_t=res.W_fb_t if feedback else zero(res.W_fb_t))
+    Wc = stacked_weights(res_k, n_in, n_out, k_pad(n_res, n_in, n_out))
+    u_fm = scale_inputs(scale, inputs).permute(1, 2, 0).contiguous()
+    wout = Wt_out.contiguous()
+    out = torch.empty(B, T - n_forget, n_out, dtype=torch.float32,
+                      device=inputs.device)
+    rc = launch(
+        u_fm.data_ptr(), Wc.data_ptr(), wout.data_ptr(), out.data_ptr(),
+        B, T, n_res, n_in, n_out, B // G, n_forget,
+        sum(_OFF_BIT[p] for p in off), float(res.noise),
+        float(scale.teacher_scaling), int(seed) & (2**64 - 1),
+        torch.cuda.current_stream(inputs.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ESN predict ablation {sorted(off)} launch "
+                           f"failed: CUDA error {rc}")
+    launches_ablate += 1
     return out

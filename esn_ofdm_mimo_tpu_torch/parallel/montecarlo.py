@@ -11,21 +11,30 @@ Calibrated CDL (`cdl_snr_point`, the JAX `_cdl_snr_point` as driven by
                    cdl_decode_counters on the round-stacked LLRs (per-codeword
                    decoding is independent, so this equals per-round decoding)
 
+`run_cdl_curve` sweeps the SNR grid with it: the round budget split into
+calibration and decode rounds, per-SNR keys block_keys(root, snr index,
+global block ids) with the calibration ids first, the adaptive top-up
+(extra decode rounds that continue the id stream until every detector has
+enough errors or the block cap is reached), per-SNR checkpoints and
+progress lines.
+
 Block fading (`nbf_snr_point`, `run_nbf_curve`): rounds of run_nbf_blocks,
-counters summed per SNR, per-SNR keys from block_keys(root, snr index,
-global block ids) — the stream the JAX fused NBF grid folds on the device —
-and `assemble_curve` into a `CurveResult`. The adaptive top-up,
-checkpointing and multi-GPU are not ported yet.
+counters summed per SNR, the same key stream (the one the JAX fused NBF grid
+folds on the device), the same top-up, checkpoints and progress, and
+`assemble_curve` into a `CurveResult`.
 
 The JAX `lax.scan` over rounds becomes a Python loop; the shard_map over a
-device mesh has no counterpart (one GPU). Counters are summed in int64 — the
-JAX package's int32 guard goes away — and returned as Python ints.
+device mesh, the fused whole-grid dispatch and multi-GPU have no
+counterpart (one GPU, eager). Counters are summed in int64 on the host, so
+the JAX package's int32 guards go away; the cap on round-stacked decode
+LLRs stays. `_call_with_retry` re-runs a call on a runtime failure: calls
+are pure functions of their keys, so a retry is exact.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,6 +46,7 @@ from ..pipelines.cdl import (CDL_DETECTORS, CdlCounts, cdl_decode_counters,
                              run_cdl_detect_llrs)
 from ..utils import rng
 from ..utils.device import resolve_device
+from ..utils.metrics import check_finite
 
 
 class CdlSnrPoint(NamedTuple):
@@ -93,10 +103,25 @@ def cdl_snr_point(cfg: SimConfig, ebno_db: float, cal_keys, dec_keys,
         cal_bits += out.total_bits
         bits.append(out.bits.reshape(-1, m))
     clock.mark("cal")
+    check_finite("the calibration LLRs", *(x for v in llrs.values()
+                                           for x in v))
     calib = fit_calibrators(cfg, {d: torch.cat(v) for d, v in llrs.items()},
                             torch.cat(bits))
     clock.mark("fit")
 
+    counts = _cdl_decode_rounds(cfg, ebno_db, dec_keys, calib, clock)
+    return CdlSnrPoint(cal_bit_errors=_ints(cal_errs),
+                       cal_total_bits=cal_bits, counts=counts, calib=calib)
+
+
+def _ints(dct: dict) -> dict:
+    return {k: int(v) for k, v in dct.items()}
+
+
+def _cdl_decode_rounds(cfg: SimConfig, ebno_db: float, dec_keys, calib: dict,
+                       clock: _PhaseClock) -> CdlCounts:
+    """Detection per round of dec_keys (Rd, G, 2), one BP decode of the
+    round-stacked LLRs; CdlCounts of Python ints."""
     dec_errs = {d: 0 for d in CDL_DETECTORS}
     dec_bits, Lcs, us = 0, {d: [] for d in CDL_DETECTORS}, []
     for keys in dec_keys:
@@ -108,19 +133,34 @@ def cdl_snr_point(cfg: SimConfig, ebno_db: float, cal_keys, dec_keys,
         us.append(u)
     clock.mark("detect")
     u = torch.cat(us)
-    dec = cdl_decode_counters(cfg, {d: torch.cat(v) for d, v in Lcs.items()},
-                              u)
+    Lcs = {d: torch.cat(v) for d, v in Lcs.items()}
+    check_finite("the calibrated decode LLRs", *Lcs.values())
+    dec = cdl_decode_counters(cfg, Lcs, u)
     clock.mark("decode")
+    return CdlCounts(
+        bit_errors=_ints(dec_errs), total_bits=dec_bits,
+        info_errors=_ints(dec["info_errors"]), total_info_bits=u.numel(),
+        frame_errors=_ints(dec["frame_errors"]),
+        ldpc_iter_sum=_ints(dec["iter_sum"]),
+        ldpc_unconverged=_ints(dec["unconv"]), ldpc_codewords=u.shape[0])
 
-    ints = lambda dct: {k: int(v) for k, v in dct.items()}       # noqa: E731
-    counts = CdlCounts(
-        bit_errors=ints(dec_errs), total_bits=dec_bits,
-        info_errors=ints(dec["info_errors"]), total_info_bits=u.numel(),
-        frame_errors=ints(dec["frame_errors"]),
-        ldpc_iter_sum=ints(dec["iter_sum"]),
-        ldpc_unconverged=ints(dec["unconv"]), ldpc_codewords=u.shape[0])
-    return CdlSnrPoint(cal_bit_errors=ints(cal_errs), cal_total_bits=cal_bits,
-                       counts=counts, calib=calib)
+
+def cdl_decode_rounds(cfg: SimConfig, ebno_db: float, dec_keys, calib: dict,
+                      device=None, timings: dict | None = None) -> CdlCounts:
+    """Decode rounds alone, with calibrators already fitted (the JAX
+    dec_step): what the curve's extra and top-up rounds run. dec_keys
+    (Rd, G, 2); calib detector -> (a, b), tensors or array-likes."""
+    dev = resolve_device(device)
+    calib = {d: tuple(torch.as_tensor(x, dtype=torch.float32, device=dev)
+                      for x in ab) for d, ab in calib.items()}
+    return _cdl_decode_rounds(cfg, ebno_db, rng.as_keys(dec_keys, dev), calib,
+                              _PhaseClock(dev, timings))
+
+
+def _add_counts(a, b):
+    """Field-wise sum of two counter NamedTuples (dict fields per key)."""
+    return type(a)(*({k: x[k] + y[k] for k in x} if isinstance(x, dict)
+                     else x + y for x, y in zip(a, b)))
 
 
 def _host(x):
@@ -148,9 +188,7 @@ def nbf_snr_point(cfg: SimConfig, ebno_db: float, keys, device=None,
     acc = None
     for bkeys in keys:
         c = run_nbf_blocks(cfg, ebno_db, bkeys, mark=clock.mark)
-        acc = c if acc is None else NbfCounts(*(
-            {k: x[k] + y[k] for k in x} if isinstance(x, dict) else x + y
-            for x, y in zip(acc, c)))
+        acc = c if acc is None else _add_counts(acc, c)
     return NbfCounts(*(_host(x) for x in acc))
 
 
@@ -171,25 +209,248 @@ class CurveResult:
     ldpc_unconverged_frac: Dict[str, np.ndarray]
 
 
+# Deterministic program and user errors that a retry cannot fix: running
+# them again only delays the real traceback. Runtime errors of the backend
+# (a failed launch, an allocation that did not fit) stay retryable.
+_NO_RETRY = (TypeError, ValueError, AssertionError, AttributeError, KeyError,
+             NotImplementedError, FloatingPointError)
+
+
+def _call_with_retry(step, args, retries: int = 2,
+                     progress: Optional[Callable[[str], None]] = None):
+    """Run step(*args), again on a runtime failure, `retries` times at most.
+    Rounds are pure functions of their keys, so a retry is exact."""
+    last = None
+    for attempt in range(retries + 1):
+        try:
+            return step(*args)
+        except _NO_RETRY:
+            raise
+        except Exception as e:  # noqa: BLE001 - backend errors are opaque
+            last = e
+            if progress is not None:
+                progress(f"[mc] round failed (attempt {attempt + 1}): {e}")
+    raise last
+
+
+def _round_keys(root: torch.Tensor, snr_idx: int, first_id: int,
+                n_rounds: int, G: int) -> torch.Tensor:
+    """Keys (n_rounds, G, 2) of the global block ids first_id .. first_id +
+    n_rounds * G - 1 at one SNR index."""
+    ids = torch.arange(first_id, first_id + n_rounds * G)
+    return rng.block_keys(root, snr_idx, ids).reshape(n_rounds, G, 2)
+
+
+def _adaptive_topup(acc, run_rounds, stop_counts, unit: str, tag: str,
+                    ebno: float, G: int, blocks: int, first_id: int,
+                    min_errors: Optional[int], max_blocks: int,
+                    rounds_per_call: int, progress):
+    """Sequential Monte-Carlo extension at one SNR point: while any
+    detector's count in `stop_counts(acc)` is below `min_errors`, add up to
+    `rounds_per_call` whole rounds of G blocks through `run_rounds(first
+    block id, rounds)`, never passing `max_blocks` (`blocks` are already
+    in). Block ids continue the base budget's, so an adaptive run's sample
+    contains the fixed-budget run's. The progress line names the counter
+    the stop rule reads. Returns the summed counters."""
+    if not min_errors:
+        return acc
+    extra = 0
+    # whole rounds only: stop when less than one round is left under the cap
+    while (min(int(v) for v in stop_counts(acc).values()) < min_errors
+           and max_blocks - blocks >= G):
+        n_rounds = min(max(1, rounds_per_call), (max_blocks - blocks) // G)
+        acc = _add_counts(acc, run_rounds(first_id + extra, n_rounds))
+        blocks += n_rounds * G
+        extra += n_rounds * G
+    if progress is not None and extra:
+        errs = {d: int(v) for d, v in stop_counts(acc).items()}
+        progress(f"[{tag}] EbNo={ebno:g} dB adaptive: +{extra} blocks "
+                 f"({blocks} {'decoded' if tag == 'cdl' else 'total'}), "
+                 f"{unit} {errs}")
+    return acc
+
+
 def run_nbf_curve(cfg: SimConfig, blocks_per_snr: int,
                   blocks_per_round: int = 4, seed: Optional[int] = None,
-                  device=None) -> CurveResult:
-    """The SNR sweep of a block-fading experiment at a fixed budget:
-    blocks_per_snr rounded up to whole rounds of blocks_per_round blocks.
-    Block keys are block_keys(PRNGKey(seed), snr index, 0 .. n - 1), the
-    JAX package's stream, so the classical detectors draw the same blocks.
-    """
+                  device=None,
+                  progress: Optional[Callable[[str], None]] = print,
+                  checkpoint=None, rounds_per_call: int = 4,
+                  adaptive_min_errors: Optional[int] = None,
+                  adaptive_max_blocks: Optional[int] = None,
+                  adaptive_on_uncoded: bool = False) -> CurveResult:
+    """The SNR sweep of a block-fading experiment (JAX run_nbf_curve).
+
+    blocks_per_snr is rounded up to whole calls of `rounds_per_call` rounds
+    of `blocks_per_round` blocks, as the JAX package rounds it to whole
+    dispatches. Block keys are block_keys(PRNGKey(seed), snr index, 0 ..
+    n - 1), the JAX package's stream, so the classical detectors draw the
+    same blocks.
+
+    adaptive_min_errors: after the base budget at an SNR point, keep adding
+    rounds until EVERY detector has at least this many failed codewords
+    (frame errors: coded bit errors cluster per failed codeword, so frame
+    counts set the effective sample size), or, with adaptive_on_uncoded,
+    uncoded bit errors; or until adaptive_max_blocks (default 4 x
+    blocks_per_snr) is reached. `checkpoint` (utils.checkpoint.SnrCheckpoint)
+    saves each finished SNR point and skips the ones it holds."""
     dev = resolve_device(device)
     G = blocks_per_round
     rounds = max(1, -(-blocks_per_snr // G))
-    root = rng.prng_key(cfg.seed if seed is None else seed, dev)
+    R = max(1, min(rounds_per_call, rounds))
+    calls = -(-rounds // R)
+    root = rng.prng_key(cfg.seed if seed is None else seed)
     ebnos = np.asarray(cfg.ebno_db, dtype=np.float32)
+    max_blocks = (4 * blocks_per_snr if adaptive_max_blocks is None
+                  else adaptive_max_blocks)
+    coded_unit = cfg.ldpc.enabled and not adaptive_on_uncoded
+
     acc_per_snr = []
     for jj, ebno in enumerate(ebnos):
-        keys = rng.block_keys(root, jj, torch.arange(rounds * G))
-        acc_per_snr.append(nbf_snr_point(
-            cfg, float(ebno), keys.reshape(rounds, G, 2), device=dev))
+        if checkpoint is not None and checkpoint.has(jj):
+            loaded = checkpoint.load_or_none(jj)
+            if loaded is not None:
+                acc_per_snr.append(loaded)
+                continue
+
+        def run_rounds(first_id, n_rounds):
+            keys = _round_keys(root, jj, first_id, n_rounds, G)
+            return _call_with_retry(nbf_snr_point,
+                                    (cfg, float(ebno), keys, dev),
+                                    progress=progress)
+
+        acc = run_rounds(0, R)
+        for c in range(1, calls):
+            acc = _add_counts(acc, run_rounds(c * R * G, R))
+        acc = _adaptive_topup(
+            acc, run_rounds,
+            lambda a: a.frame_errors if coded_unit else a.bit_errors,
+            "failed codewords" if coded_unit else "bit errors", "mc", ebno,
+            G, calls * R * G, calls * R * G, adaptive_min_errors, max_blocks,
+            rounds_per_call, progress)
+        acc_per_snr.append(acc)
+        if checkpoint is not None:
+            checkpoint.save(jj, acc)
+        if progress is not None:
+            ber = {k: v / max(acc.total_bits, 1)
+                   for k, v in acc.bit_errors.items()}
+            progress(f"[mc] EbNo={ebno:g} dB done: "
+                     + " ".join(f"{k}={v:.4g}" for k, v in sorted(ber.items())))
     return assemble_curve(cfg, ebnos, acc_per_snr)
+
+
+def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
+                  blocks_per_round: int = 2, seed: Optional[int] = None,
+                  device=None,
+                  progress: Optional[Callable[[str], None]] = print,
+                  checkpoint=None, rounds_per_call: int = 4,
+                  adaptive_min_errors: Optional[int] = None,
+                  adaptive_max_blocks: Optional[int] = None,
+                  adaptive_on_uncoded: bool = False,
+                  timings: dict | None = None) -> list:
+    """SNR sweep of the calibrated CDL pipeline (JAX run_cdl_curve).
+
+    blocks_per_snr is rounded up to whole rounds of `blocks_per_round`
+    blocks and split into calibration rounds (calib.cal_fraction of them)
+    and decode rounds; a one-round budget cannot host both phases and is
+    bumped to 1 + 1, loudly. Per SNR index jj the keys are block_keys(root,
+    jj, ids) with the calibration ids first and the decode ids after.
+
+    adaptive_min_errors: after the base budget, keep running decode rounds
+    at an SNR point until every detector has at least this many failed
+    codewords (uncoded bit errors with adaptive_on_uncoded), or until
+    adaptive_max_blocks decoded blocks (default 4 x blocks_per_snr). The
+    waterfall, where the coded BER falls decades across one grid step, is
+    where a fixed budget leaves run-to-run variance; an error-count rule
+    spends blocks there and nowhere else.
+
+    `timings`, when given, receives the wall ms of each phase summed over
+    the sweep (cal, fit, detect, decode). Returns one dict per SNR point:
+    ebno_db, ber_uncoded, ber_coded, calib, ldpc_avg_iters,
+    ldpc_unconverged_frac."""
+    dev = resolve_device(device)
+    G = blocks_per_round
+    rounds = max(1, -(-blocks_per_snr // G))
+    cal_rounds = min(max(1, round(rounds * cfg.calib.cal_fraction)),
+                     max(rounds - 1, 1))
+    dec_rounds = max(1, rounds - cal_rounds)
+    if cal_rounds + dec_rounds != rounds and progress is not None:
+        progress(f"[cdl] blocks_per_snr={blocks_per_snr} gives a single "
+                 f"{G}-block round; the calibrated pipeline needs separate "
+                 f"cal+decode rounds, so {cal_rounds + dec_rounds} rounds "
+                 f"({(cal_rounds + dec_rounds) * G} blocks/SNR) will run")
+    root = rng.prng_key(cfg.seed if seed is None else seed)
+    # decode rounds whose stacked f32 LLRs (one BP call) stay under ~6e8
+    # bytes per detector; the rest run as extra calls of R rounds
+    bpb = (cfg.data_symbols_per_block * cfg.channel.n_tx
+           * cfg.ofdm.n_subcarriers * cfg.ofdm.bits_per_symbol)
+    rd_first = min(dec_rounds, max(1, int(6e8 // (G * bpb * 4))))
+    rd_extra = dec_rounds - rd_first
+    R = max(1, min(rounds_per_call, rd_extra))
+    max_dec_blocks = (4 * blocks_per_snr if adaptive_max_blocks is None
+                      else adaptive_max_blocks)
+    unit = "bit errors" if adaptive_on_uncoded else "failed codewords"
+
+    ebnos = np.asarray(cfg.ebno_db, dtype=np.float32)
+    results = []
+    for jj, ebno in enumerate(ebnos):
+        if checkpoint is not None and checkpoint.has(jj):
+            loaded = checkpoint.load_or_none(jj)
+            if loaded is not None:
+                results.append(loaded)
+                continue
+        first_dec = cal_rounds * G
+        pt = _call_with_retry(
+            cdl_snr_point,
+            (cfg, float(ebno), _round_keys(root, jj, 0, cal_rounds, G),
+             _round_keys(root, jj, first_dec, rd_first, G), dev, timings),
+            progress=progress)
+        calib = pt.calib
+
+        def run_rounds(first_id, n_rounds):
+            keys = _round_keys(root, jj, first_id, n_rounds, G)
+            return _call_with_retry(
+                cdl_decode_rounds,
+                (cfg, float(ebno), keys, calib, dev, timings),
+                progress=progress)
+
+        coded = pt.counts
+        bid = first_dec + rd_first * G
+        while bid < first_dec + dec_rounds * G:
+            n_r = min(R, (first_dec + dec_rounds * G - bid) // G)
+            coded = _add_counts(coded, run_rounds(bid, n_r))
+            bid += n_r * G
+        coded = _adaptive_topup(
+            coded, run_rounds,
+            lambda c: c.bit_errors if adaptive_on_uncoded else c.frame_errors,
+            unit, "cdl", ebno, G, bid - first_dec, bid, adaptive_min_errors,
+            max_dec_blocks, rounds_per_call, progress)
+
+        tot_unc = pt.cal_total_bits + coded.total_bits
+        ncw = max(coded.ldpc_codewords, 1)
+        snr_res = {
+            "ebno_db": float(ebno),
+            "ber_uncoded": {
+                d: (pt.cal_bit_errors[d] + coded.bit_errors[d]) / tot_unc
+                for d in CDL_DETECTORS},
+            "ber_coded": {
+                d: coded.info_errors[d] / max(coded.total_info_bits, 1)
+                for d in CDL_DETECTORS},
+            "calib": {d: (a.cpu().numpy().tolist(), b.cpu().numpy().tolist())
+                      for d, (a, b) in calib.items()},
+            # BP convergence telemetry (the budget counted for unconverged)
+            "ldpc_avg_iters": {d: v / ncw
+                               for d, v in coded.ldpc_iter_sum.items()},
+            "ldpc_unconverged_frac": {
+                d: v / ncw for d, v in coded.ldpc_unconverged.items()},
+        }
+        results.append(snr_res)
+        if checkpoint is not None:
+            checkpoint.save(jj, snr_res)
+        if progress is not None:
+            progress(f"[cdl] EbNo={ebno:g} dB: "
+                     f"uncoded {snr_res['ber_uncoded']}, "
+                     f"coded {snr_res['ber_coded']}")
+    return results
 
 
 def assemble_curve(cfg: SimConfig, ebnos, acc_per_snr) -> CurveResult:

@@ -24,6 +24,7 @@ from ..config import SimConfig
 from ..ldpc import ldpc_decode_bp_counts, llr_from_yobs, make_code
 from ..ops import channel_svd_metrics, est_sigma2_from_decision, \
     qam_llrs_maxlog, symbols_to_bits_hard
+from ..utils.metrics import check_finite
 from .common import (DETECTORS, data_bits_for_blocks, detect_data_symbols,
                      link_budget, synth_block)
 
@@ -113,6 +114,7 @@ def run_nbf_blocks(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
         llr = torch.clamp(llr * lc.llr_scale, -lc.llr_clip, lc.llr_clip)
         y_obs = llr / 2.0 if lc.yobs_half else llr
         Lc_all.append(llr_from_yobs(y_obs, snr_db=1.0).reshape(-1, N * m))
+    check_finite("the decode LLRs", *Lc_all)
     ncw = Lc_all[0].shape[0]
     err, st = ldpc_decode_bp_counts(
         code, torch.cat(Lc_all), torch.cat(

@@ -26,12 +26,14 @@ BUILD = PKG / "build"
 
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC")
-# Per-kernel extra flags. The BP decoder must reproduce its plain version's
-# float sums exactly, so no multiply-add contraction there.
+# Per-kernel extra flags. The BP decoders must reproduce their plain
+# versions' float sums exactly, so no multiply-add contraction there.
 EXTRA_FLAGS = {
     "bp_decode": ("--fmad=false",),
+    "bp_decode_layered": ("--fmad=false",),
     "esn_predict": (),
     "esn_predict_grouped": (),
+    "esn_predict_ablate": (),
     "esn_states": (),
 }
 

@@ -13,7 +13,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "esn_ofdm_mimo_tpu_torch"
 _PORT_FILES = sorted(p for p in PORT.rglob("*")
                      if p.suffix in (".py", ".cu", ".cuh")) + [
-                         ROOT / "chip_smoke.py"]
+                         ROOT / "chip_smoke.py",
+                         ROOT / "tools" / "bench_micro_torch.py"]
 
 
 def test_port_imports_with_jax_blocked():
@@ -24,7 +25,13 @@ def test_port_imports_with_jax_blocked():
             "esn_ofdm_mimo_tpu_torch.ldpc.decode_cuda, "
             "esn_ofdm_mimo_tpu_torch.models.esn_cuda, "
             "esn_ofdm_mimo_tpu_torch.models.esn_states_cuda, "
-            "esn_ofdm_mimo_tpu_torch.pipelines.blockfading\n"
+            "esn_ofdm_mimo_tpu_torch.pipelines.blockfading, "
+            "esn_ofdm_mimo_tpu_torch.experiments.run, "
+            "esn_ofdm_mimo_tpu_torch.utils.checkpoint, "
+            "esn_ofdm_mimo_tpu_torch.utils.metrics, "
+            "esn_ofdm_mimo_tpu_torch.utils.reporting\n"
+            "import runpy\n"
+            "runpy.run_path('tools/bench_micro_torch.py', run_name='tool')\n"
             "import torch\n"
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
             "assert not torch.backends.cudnn.allow_tf32\n"
