@@ -20,11 +20,16 @@ nvcc per source, all started together; sm_90a), then:
      128 readouts of 74 rows): noise 0 within atol 1e-4 / rtol 1e-3, noise
      1e-3 within the plain version's own noise band; [K2-nbf] the same check
      at the mimo_4x8_nbf detect shape (2,304 rows, T = 522, n_res = 600);
+     [K2 ragged] batches that no tile height divides (9,435 rows) and that
+     are smaller than the card's SM count (100 rows); each line prints the
+     tiling the wrapper chose (rows a block, blocks, blocks an SM, shared
+     memory);
   4. K3, the ESN state harvest (csrc/esn_states.cu), against plain
      esn_states at the mimo_4x8_nbf fit shape (128 x 522 x 600) and the
      flagship fit shape (128 x 138 x 300), the same tolerances;
   5. K4, the grouped-readout predict (csrc/esn_predict_grouped.cu), against
-     plain grouped esn_predict and against K2 at the flagship detect shape;
+     plain grouped esn_predict and against K2 at the flagship detect shape,
+     [K4-nbf] the same at the mimo_4x8_nbf detect shape (3 slots a block);
      [K1-layered] the row-layered BP decoder (csrc/bp_decode_layered.cu)
      against plain layered BP on the same codewords as K1 (cap 50) and
      K1-nbf (caps 50 and 100): identical for both min-sum rules,
@@ -324,6 +329,24 @@ def main() -> None:
          f"{k1n_plain_ms:.3f} ms bound {k1n_bound:.4f} ms ({k1n_by})")
 
     # ---- 3. K2: ESN predict vs its plain version ----------------------------
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def tiling_str(plan) -> str:
+        return (f"tile {plan.height} rows, {plan.blocks} blocks of "
+                f"{plan.rows_per_block} rows, {plan.blocks_per_sm} a SM on "
+                f"{n_sm} SMs, {plan.waves} wave(s), {plan.smem_bytes} B shared")
+
+    def k2_tiling(res_, inputs_, Wt_out_, grouped=False, ablate=False) -> str:
+        """The tiling the wrapper gives a predict call of these operands."""
+        dims = (inputs_.shape[0], res_.Wt.shape[0], inputs_.shape[2],
+                Wt_out_.shape[2], n_sm)
+        if grouped:
+            return tiling_str(esn_cuda.grouped_plan(
+                dims[0], Wt_out_.shape[0], *dims[1:]))
+        return tiling_str(esn_cuda.predict_tiling(
+            *dims, heights=esn_cuda.tile_heights(
+                dims[1], "ablate" if ablate else "per_row")))
+
     def predict_shape(c, G: int, seed: int):
         """Reservoir, scale, grouped readouts and inputs of a detect call of
         G blocks of config c, at full width."""
@@ -374,14 +397,27 @@ def main() -> None:
         "esn_predict", "esn_predict.cu",
         "esn_ofdm_mimo_tpu/models/esn_pallas.py:101", k2_err, k2_ms,
         k2_plain_ms, *k2_work)
-    _log(f"[K2] rows {B} T {T} n_res {res.Wt.shape[0]} G {G} Dg {B // G}: "
+    _log(f"[K2] rows {B} T {T} n_res {res.Wt.shape[0]} G {G} Dg {B // G} "
+         f"({k2_tiling(res, inputs, Wt_out)}): "
          f"max abs err {k2_err:.3e} | noise RMS kernel {r_k:.4e} plain "
          f"{r_p:.4e} | kernel {k2_ms:.3f} ms plain {k2_plain_ms:.3f} ms "
          f"bound {kernels['esn_predict']['bound_ms']:.4f} ms "
          f"({k2_work[1] / 1e9:.1f} GFLOP)")
 
-    # K2 at the NBF detect shape: n_res = 600 (the NJ4 = 10 build, 160 KB of
-    # shared memory, one block an SM) and 36 tiles of 64 rows
+    # K2 on batches no tile height divides, and smaller than the SM count;
+    # the summation order differs from the plain matmuls': atol 1e-4, rtol 1e-3
+    for B_r, G_r in ((B - 37, (B - 37) // 37), (100, 50)):
+        x_r = inputs[:B_r].contiguous()
+        W_r = 0.02 * torch.randn(G_r, Wt_out.shape[1], Wt_out.shape[2],
+                                 generator=gen, device=dev)
+        err_r = close(
+            esn_cuda.esn_predict_cuda(res, scale, W_r, x_r, n_forget, 0),
+            esn_predict(res, scale, W_r, x_r, n_forget), f"K2 ragged {B_r}")
+        _log(f"[K2 ragged] rows {B_r} G {G_r} Dg {B_r // G_r} "
+             f"({k2_tiling(res, x_r, W_r)}): max abs err {err_r:.3e}")
+    del x_r, W_r
+
+    # K2 at the NBF detect shape: n_res = 600 (the 10 x 64 neuron build)
     res_n, inputs_n, Wt_out_n, n_forget_n = predict_shape(nbf, G, 8)
     pk_n = esn_cuda.esn_predict_cuda(res_n, scale, Wt_out_n, inputs_n,
                                      n_forget_n, 0)
@@ -394,10 +430,30 @@ def main() -> None:
     k2n_bound, k2n_by = _bound(*predict_work(res_n, inputs_n, Wt_out_n, pk_n))
     _log(f"[K2-nbf] rows {inputs_n.shape[0]} T {inputs_n.shape[1]} n_res "
          f"{res_n.Wt.shape[0]} G {G} Dg {inputs_n.shape[0] // G} "
-         f"({-(-inputs_n.shape[0] // 64)} tiles): max abs err {k2n_err:.3e} | "
+         f"({k2_tiling(res_n, inputs_n, Wt_out_n)}): max abs err "
+         f"{k2n_err:.3e} | "
          f"kernel {k2n_ms:.3f} ms plain {k2n_plain_ms:.3f} ms bound "
          f"{k2n_bound:.4f} ms ({k2n_by})")
-    del pk_n, pp_n, inputs_n
+    _check(k2n_ms < k2n_plain_ms,
+           f"K2 at the NBF shape ({k2n_ms} ms) is not below its plain "
+           f"version ({k2n_plain_ms} ms)")
+    # K4 at the same shape: 18 rows a block over runs of 18 touch 3 readouts
+    k4n_plan = esn_cuda.grouped_plan(
+        inputs_n.shape[0], G, res_n.Wt.shape[0], inputs_n.shape[2],
+        Wt_out_n.shape[2], n_sm)
+    _check(k4n_plan is not None, "the NBF detect shape does not reach K4")
+    run_k4n = lambda: esn_cuda.esn_predict_cuda(                 # noqa: E731
+        res_n, scale, Wt_out_n, inputs_n, n_forget_n, 0, readout="grouped")
+    pg_n = run_k4n()
+    k4n_err = close(pg_n, pp_n, "K4-nbf")
+    k4n_vs_k2 = float((pg_n - pk_n).abs().max())
+    k4n_ms = cuda_ms(run_k4n, 2)
+    Dg_n = inputs_n.shape[0] // G
+    _log(f"[K4-nbf] rows {inputs_n.shape[0]} Dg {Dg_n} P "
+         f"{esn_cuda.grouped_slots(G, Dg_n, k4n_plan.rows_per_block)} "
+         f"({tiling_str(k4n_plan)}): max abs err vs plain {k4n_err:.3e} vs "
+         f"K2 {k4n_vs_k2:.3e} | kernel {k4n_ms:.3f} ms, K2 {k2n_ms:.3f} ms")
+    del pk_n, pp_n, pg_n, inputs_n
 
     # ---- 4. K3: ESN state harvest vs its plain version ----------------------
     def k3_phase(c, label: str, seed: int):
@@ -462,8 +518,11 @@ def main() -> None:
         "esn_predict_grouped", "esn_predict_grouped.cu",
         "esn_ofdm_mimo_tpu/models/esn_pallas.py:152", k4_err, k4_ms,
         k2_plain_ms, *k2_work)
+    k4_plan = esn_cuda.grouped_plan(B, G, res.Wt.shape[0], inputs.shape[2],
+                                    Wt_out.shape[2], n_sm)
     _log(f"[K4] rows {B} T {T} G {G} Dg {B // G} P "
-         f"{esn_cuda.grouped_slots(G, B // G)}: max abs err vs plain "
+         f"{esn_cuda.grouped_slots(G, B // G, k4_plan.rows_per_block)} "
+         f"({tiling_str(k4_plan)}): max abs err vs plain "
          f"{k4_err:.3e} vs K2 {k4_vs_k2:.3e} | noise RMS {r_k4:.4e} | kernel "
          f"{k4_ms:.3f} ms, K2 in the same turns {k2_pair_ms:.3f} ms, plain "
          f"{k2_plain_ms:.3f} ms, bound "
@@ -608,7 +667,8 @@ def main() -> None:
                                    + (n_out5 if sw["feedback"] else 0)))
         k5[label] = (err, ms, plain_ms, n_bytes, float(B5) * T * per_step)
         b_ms, b_by = _bound(*k5[label][3:])
-        _log(f"[K5 {label}] rows {B5} T {T} n_res {n_res5}: max abs err "
+        _log(f"[K5 {label}] rows {B5} T {T} n_res {n_res5} "
+             f"({k2_tiling(res5, x5, W5, ablate=True)}): max abs err "
              f"{err:.3e} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
              f"{b_ms:.4f} ms ({b_by})")
     kernels["esn_predict_ablate"] = _entry(

@@ -14,32 +14,51 @@
 // n_res = 300, n_in = 16, n_out = 8) the work is ~2.6e11 fp32 operations,
 // almost all in the recurrence W s; the kernel reads ~84 MB of inputs and
 // writes ~39 MB. So it is bound by fp32 arithmetic (~3.9 ms at 67 TFLOP/s),
-// not by device memory (~0.04 ms) — if W stays on chip. W in f32 is
-// 300 x 300 x 4 = 360 KB, more than one block's 227 KB of shared memory.
+// not by device memory (~0.04 ms), if the state stays on chip and every SM
+// works for all T steps. W in f32 (360 KB, 1.4 MB at n_res = 600) does not
+// fit an SM's shared memory, so it is streamed from L2 at every step; what
+// then holds the FMA pipe back is shared-memory traffic (each multiply-add
+// needs operands loaded from it), barriers, and rows that do not fill the
+// tiles or the SMs.
 //
-// Design (simple first; wgmma/TMA and a bf16/TF32 W are later work):
-//   * a block owns 64 rows for all T steps (one launch, no per-step
-//     launches). Its operand X = [s; u_t; o] (K_pad x 64 f32, 86 KB at the
-//     flagship, 160 KB at n_res = 600) stays in shared memory across the
-//     whole recurrence;
-//   * the per-step update is one (n_p x K_pad) x (K_pad x 64) product with
-//     the stacked weight Wc = [Wt; W_in_t; W_fb_t] (zero padded to
-//     K_pad x n_p, n_p = n_res rounded up to 64). Wc is streamed from L2,
-//     where all blocks keep it resident, in 16-row chunks through shared
-//     memory; each thread accumulates a 4-row x 4*NJ4-neuron register tile
-//     from float4 shared-memory reads (64 FMAs per 8 loads). ~106 KB of
-//     shared memory lets two blocks share an SM, so the flagship's 148
-//     blocks run in one wave on 132 SMs;
-//   * the grouped readout is read from L2 per step, not repeated per row:
-//     a row's readout is Wout[row / Dg] of the (G, F, n_out) stack, and a
-//     64-row tile may straddle groups (74 does not divide 64); consecutive
-//     threads take consecutive output columns of one row, so the readout
-//     reads are coalesced and the state reads broadcast;
+// Design:
+//   * rows are dealt to the SMs evenly. The wrapper (models/esn_cuda.py:
+//     predict_tiling) gives every SM the same number of blocks and every
+//     block the same rows, B / SMs rounded up, all resident in one wave; the
+//     kernel is built for tile heights of 20 and 72 rows, and a block
+//     computes the smallest tile that holds its rows (flagship: 132 blocks of
+//     72 rows; mimo_4x8_nbf detect, 2,304 rows at n_res = 600: 128 blocks of
+//     18 rows in the 20-row tile). A block keeps its state S and two
+//     buffers of [u; o] (even and odd steps) in shared memory for all T
+//     steps;
+//   * the per-step update is one (n_p x K) x (K x rows) product with the
+//     stacked weight Wc = [Wt; W_in_t; W_fb_t] (n_p = n_res rounded up to
+//     64). A thread holds a register tile of rows x neurons accumulators
+//     (9 x 10 at the flagship); 256 threads a block, or 128 where 256 would
+//     leave a thread too small a tile to pay for its shared-memory loads. A
+//     warp covers all rows of the tile and its own slice of the neurons;
+//   * the weight stream is overlapped and needs no block barrier: a warp
+//     reads only its own columns of Wc, so each warp streams them with
+//     cp.async (16 bytes, .cg) through a ring of its own, 4 chunks of 8 Wc
+//     rows, three in flight while one is multiplied, across the step
+//     boundary too. Inside the product the warps synchronise with
+//     __syncwarp only; the block meets at four barriers a step. u_{t+1} is
+//     copied by cp.async during step t;
+//   * the readout is shared by all threads: a lane is a row, a warp takes
+//     every 4th or 8th feature with 8 accumulators (all outputs of the row;
+//     the state value is reused n_out times, the weights are read as
+//     float4), the partial sums meet in shared memory. K2 reads the readout
+//     weights Wout[row / Dg] through L1 from L2 at every step; the launcher
+//     leaves L1 whatever shared memory the resident blocks do not need;
 //   * state noise is Philox-4x32-10 (curand_kernel.h), one subsequence per
 //     thread, seeded by the wrapper; it is added only to real neurons;
 //   * everything is fp32 with fused multiply-adds, so sums differ from the
 //     plain version's matmuls by rounding only (compared at atol 1e-4,
 //     rtol 1e-3).
+//
+// Times (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W) are kept in
+// PERF.md, beside those of the 64-row, barrier-per-chunk design this one
+// replaced.
 
 #include "esn_predict_core.cuh"
 
@@ -47,13 +66,19 @@ extern "C" int esn_predict_k_pad(int n_res, int n_in, int n_out) {
   return esn_predict::k_pad(n_res, n_in, n_out);
 }
 
+extern "C" long long esn_predict_smem_bytes(int n_res, int n_in, int n_out,
+                                            int height, int P) {
+  return (long long)esn_predict::smem_bytes(n_res, n_in, n_out, height, 0);
+}
+
 extern "C" int esn_predict_launch(const float* u_fm, const float* wc,
                                   const float* wout, float* out, int B, int T,
                                   int n_res, int n_in, int n_out, int Dg,
-                                  int n_forget, float noise,
-                                  float teacher_scaling,
+                                  int n_forget, int rows, int height,
+                                  float noise, float teacher_scaling,
                                   unsigned long long seed, void* stream) {
   return esn_predict::launch_any<false>(u_fm, wc, wout, out, B, T, n_res,
-                                        n_in, n_out, Dg, n_forget, 0, noise,
-                                        teacher_scaling, seed, stream);
+                                        n_in, n_out, Dg, n_forget, rows,
+                                        height, 0, noise, teacher_scaling,
+                                        seed, stream);
 }

@@ -25,9 +25,10 @@
 // counterpart here and select no build.
 //
 // Builds: the full recurrence, each single part off, and the floor (all
-// five off), for ceil(n_res / 64) == 5 (the micro-benchmark's n_res = 300).
-// Another mask or width returns cudaErrorInvalidValue; the wrapper raises
-// before it gets here.
+// five off), for ceil(n_res / 64) == 5 (the micro-benchmark's n_res = 300)
+// and the 72-row tile, which the wrapper's tiling is held to. Another mask,
+// width or height returns cudaErrorInvalidValue; the wrapper raises before
+// it gets here.
 
 #include "esn_predict_core.cuh"
 
@@ -36,6 +37,7 @@ namespace {
 using namespace esn_predict;
 
 constexpr int kNj4 = 5;
+constexpr int kHeight = 72;
 constexpr int kFloor = kNoReadout | kNoFeedback | kNoNoise | kNoTanh | kNoRecDot;
 
 }  // namespace
@@ -44,20 +46,27 @@ extern "C" int esn_predict_ablate_k_pad(int n_res, int n_in, int n_out) {
   return esn_predict::k_pad(n_res, n_in, n_out);
 }
 
+extern "C" long long esn_predict_ablate_smem_bytes(int n_res, int n_in,
+                                                   int n_out, int height,
+                                                   int P) {
+  return (long long)esn_predict::smem_bytes(n_res, n_in, n_out, height, 0);
+}
+
 extern "C" int esn_predict_ablate_launch(
     const float* u_fm, const float* wc, const float* wout, float* out, int B,
-    int T, int n_res, int n_in, int n_out, int Dg, int n_forget, int off_mask,
-    float noise, float teacher_scaling, unsigned long long seed,
-    void* stream) {
+    int T, int n_res, int n_in, int n_out, int Dg, int n_forget, int rows,
+    int height, int off_mask, float noise, float teacher_scaling,
+    unsigned long long seed, void* stream) {
   if (B <= 0 || T <= n_forget) return 0;
-  if ((n_res + 63) / 64 != kNj4) return (int)cudaErrorInvalidValue;
-  const int K_pad = k_pad(n_res, n_in, n_out);
+  if ((n_res + 63) / 64 != kNj4 || height != kHeight || rows <= 0 ||
+      rows > height || Dg <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define ABLATE_CASE(MASK)                                                    \
   case MASK:                                                                 \
-    return launch<kNj4, false, MASK>(u_fm, wc, wout, out, B, T, n_res, n_in, \
-                                     n_out, Dg, n_forget, K_pad, 0, noise,   \
-                                     teacher_scaling, seed, s);
+    return launch<kNj4, kHeight, false, MASK>(                               \
+        u_fm, wc, wout, out, B, T, n_res, n_in, n_out, Dg, n_forget, rows,   \
+        0, noise, teacher_scaling, seed, s);
   switch (off_mask) {
     ABLATE_CASE(0)
     ABLATE_CASE(kNoReadout)

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as Fn
 
 from .esn import EsnReservoir, EsnScale, _readout_lstsq, scale_inputs
-from .esn_cuda import esn_predict_cuda, grouped_viable
+from .esn_cuda import choose_readout, esn_predict_cuda
 from .esn_states_cuda import esn_states_cuda
 
 
@@ -79,14 +79,17 @@ def esn_detect_symbols(res: EsnReservoir, scale: EsnScale,
     """One OFDM symbol per row: y_cp (B, n_rx, N+cp) -> X_hat (B, N, n_tx).
     Wt_out may be grouped, (G, F, n_out) with B % G == 0 (readout g serves
     the contiguous run of B//G rows). With ESN_TPU_PREDICT_READOUT=grouped
-    and Dg > 1, P <= 4 the card runs K4 instead of K2."""
+    the card runs K4 instead of K2 where a block of the launch's tiling
+    touches at most 4 readouts (Dg > 1)."""
     N = n_subcarriers
     X_in = build_esn_input(y_cp, delay)
     G = Wt_out.shape[0]
-    grouped = (os.environ.get("ESN_TPU_PREDICT_READOUT") == "grouped"
-               and grouped_viable(G, X_in.shape[0] // G))
+    readout = "per_row"
+    if os.environ.get("ESN_TPU_PREDICT_READOUT") == "grouped":
+        readout = choose_readout(X_in.shape[0], G, res.Wt.shape[0],
+                                 X_in.shape[2], Wt_out.shape[2], X_in.device)
     pred = esn_predict_cuda(res, scale, Wt_out, X_in, delay + cp_len, seed,
-                            readout="grouped" if grouped else "per_row")
+                            readout=readout)
     x_hat_td = _deinterleave_reim(pred[:, :N])             # (B, n_tx, N)
     X_hat = torch.fft.fft(x_hat_td, dim=-1) / N / power_scale
     return X_hat.transpose(-1, -2)

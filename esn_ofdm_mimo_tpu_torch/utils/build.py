@@ -26,14 +26,17 @@ BUILD = PKG / "build"
 
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-shared", "-Xcompiler", "-fPIC")
+# The predict sources hold one kernel for each reservoir width and tile
+# height; nvcc optimises them on all cores at once.
+_SPLIT = ("-split-compile=0",)
 # Per-kernel extra flags. The BP decoders must reproduce their plain
 # versions' float sums exactly, so no multiply-add contraction there.
 EXTRA_FLAGS = {
     "bp_decode": ("--fmad=false",),
     "bp_decode_layered": ("--fmad=false",),
-    "esn_predict": (),
-    "esn_predict_grouped": (),
-    "esn_predict_ablate": (),
+    "esn_predict": _SPLIT,
+    "esn_predict_grouped": _SPLIT,
+    "esn_predict_ablate": _SPLIT,
     "esn_states": (),
 }
 

@@ -116,13 +116,16 @@ def test_grouped_predict_matches_pallas_grouped_kernel(monkeypatch):
 
 @pytest.mark.parametrize("G,Dg,viable", [
     (128, 74, True),      # flagship detect: P = 2
-    (128, 18, False),     # mimo_4x8_nbf detect: P = 5
+    (128, 18, False),     # runs of 18 rows under a 64-row block: P = 5
     (128, 1, False),      # per-row readouts
     (2, 3, True),         # P capped at G
 ])
 def test_grouped_condition(G, Dg, viable):
+    # at the default of 64 rows a block; a launch passes the rows its tiling
+    # gives a block (tests/test_torch_esn_tiling.py)
     assert esn_cuda.grouped_viable(G, Dg) is viable
     assert esn_cuda.grouped_slots(G, Dg) == min(G, 64 // Dg + 2)
+    assert esn_cuda.grouped_slots(G, Dg, 64) == esn_cuda.grouped_slots(G, Dg)
 
 
 def test_grouped_readout_argument_checks():
