@@ -7,14 +7,20 @@ Builds the port's six CUDA kernels from esn_ofdm_mimo_tpu_torch/csrc/ (one
 nvcc per source, all started together; sm_90a), then:
 
   1. prints the card (nvidia-smi name and power limit) and the build time;
-  2. K1, the BP decoder (csrc/bp_decode.cu), against its plain PyTorch
+  2. [K1 rule] the BP kernels' sum-product check rule on its own, on the
+     card and in its plain version, against float64 on a log-spaced grid
+     (each value within 1e-5 relative or 5e-7 absolute);
+     K1, the BP decoder (csrc/bp_decode.cu), against its plain PyTorch
      version on 75,776 AWGN codewords of the flagship code at two Eb/N0:
      identical bits, iterations, converged flags and counts for offset
      min-sum (the flagship rule) and normalised min-sum; sum-product within
      the agreement band of the JAX package's own kernel test;
-     [K1-nbf] the same for the mimo_4x8_nbf preset's own rule
-     (sum-product) on 12,800 codewords of its code (n = 2048, 1,024
-     threads a block) under the iteration caps 100 and 200;
+     [K1-nbf] the mimo_4x8_nbf code (n = 2048: 512 threads a block, two
+     checks a thread, two codewords an SM) under the iteration caps 100 and
+     200: both min-sum rules identical on
+     4,096 codewords, the preset's own rule (sum-product) on 12,800 in a
+     band (bit, iteration and converged agreement; FER, BER and mean
+     iterations against the plain version's);
   3. K2, the ESN predict recurrence (csrc/esn_predict.cu), against its plain
      version at the flagship detect shape (9,472 rows, T = 138, n_res = 300,
      128 readouts of 74 rows): noise 0 within atol 1e-4 / rtol 1e-3, noise
@@ -66,7 +72,9 @@ nvcc per source, all started together; sm_90a), then:
        [curve nbf] the CLI on mimo_4x8_nbf at 3 and 12 dB, 128 blocks:
        artifacts written, BERs equal to `nbf_snr_point` on the same keys;
   8. one JSON line listing the kernels (launches on the main paths, error
-     against the plain version, times, bound), then the card line and the
+     against the plain version, times, bound: the largest of bytes over the
+     memory rate, fp32 operations over the fp32 peak and transcendentals
+     over the special-function unit's rate), then the card line and the
      final {"ok": true, ...} line.
 
 Every phase ends in torch.cuda.synchronize(); any failure exits non-zero
@@ -90,6 +98,12 @@ import time
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
 _HBM_BYTES_PER_S = 3.35e12
 _FP32_FLOP_PER_S = 67e12
+# Transcendentals (ex2, lg2, rcp, ...) run on the special-function unit: 16
+# results a clock on each SM (4 a sub-partition; the CUDA C++ Programming
+# Guide's arithmetic-throughput table for compute capability 9.0) against
+# 128 fp32 lanes of 2 flops (a fused multiply-add): a sixteenth of the fp32
+# peak.
+_SFU_PER_S = _FP32_FLOP_PER_S / 16
 
 
 def _fail(msg: str):
@@ -106,14 +120,20 @@ def _log(msg: str):
     print(msg, flush=True)
 
 
-def _bound(n_bytes: float, ops: float):
-    """(least ms for the work on the card, what bounds it)."""
-    t_b, t_o = n_bytes / _HBM_BYTES_PER_S, ops / _FP32_FLOP_PER_S
-    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+def _bound(n_bytes: float, ops: float, transc: float = 0.0):
+    """(least ms for the work on the card, what bounds it): the largest of
+    bytes over the memory rate, fp32 operations over the fp32 peak and
+    transcendentals over the special-function unit's rate."""
+    t = {"bytes": n_bytes / _HBM_BYTES_PER_S,
+         "operations": ops / _FP32_FLOP_PER_S,
+         "transcendentals": transc / _SFU_PER_S}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], by
 
 
-def _entry(name, source, replaces, err, ms, plain_ms, n_bytes, ops):
-    bound_ms, by = _bound(n_bytes, ops)
+def _entry(name, source, replaces, err, ms, plain_ms, n_bytes, ops,
+           transc=0.0):
+    bound_ms, by = _bound(n_bytes, ops, transc)
     return dict(name=name, route="cuda",
                 source=f"esn_ofdm_mimo_tpu_torch/csrc/{source}",
                 replaces=replaces, launches=0, max_abs_err=err, ms=ms,
@@ -221,6 +241,41 @@ def main() -> None:
     gen.manual_seed(1)
 
     # ---- 2. K1: BP decoder vs its plain version -----------------------------
+    # The sum-product rule on its own, on the card (the exported entry of
+    # csrc/bp_decode.cu) and in the plain version, against float64 on a
+    # log-spaced grid of both signs: t = tanh(q / 2) over |q| in [1e-6, 16],
+    # r = log((1 + p) / (1 - p)) over |p| in [1e-6, 0.9999999]. Each value
+    # within 1e-5 relative or 5e-7 absolute (about 4 ulps of 1.0, the
+    # resolution of any 1 +- p in fp32), whichever is larger.
+    import numpy as np
+    from esn_ofdm_mimo_tpu_torch.ldpc.decode import log_ratio, tanh_half
+    for which, hi, ref in (("t", 16.0, lambda x: np.tanh(0.5 * x)),
+                           ("r", 0.9999999, lambda x: 2.0 * np.arctanh(x))):
+        g = np.logspace(-6.0, np.log10(hi), 100_001)
+        x = np.concatenate([-g[::-1], g]).astype(np.float32)
+        x = np.clip(x, -np.float32(hi), np.float32(hi))
+        want = ref(x.astype(np.float64))
+        tol = np.maximum(1e-5 * np.abs(want), 5e-7)
+        got_k = decode_cuda.sumprod_rule(torch.as_tensor(x, device=dev),
+                                         which).cpu().numpy()
+        plain_fn = tanh_half if which == "t" else log_ratio
+        got_p = plain_fn(torch.as_tensor(x)).numpy()
+        worst = {}
+        for name, got in (("kernel", got_k), ("plain", got_p)):
+            _check(np.isfinite(got).all(), f"K1 rule {which}: {name} not "
+                                           f"finite")
+            err = np.abs(got.astype(np.float64) - want)
+            worst[name] = (float((err / tol).max()),
+                           float((err / np.abs(want)).max()))
+            _check(worst[name][0] <= 1.0,
+                   f"K1 rule {which}: the {name} version is outside 1e-5 "
+                   f"relative / 5e-7 absolute of float64 (worst "
+                   f"{worst[name][0]:.3f} of the tolerance)")
+        _log(f"[K1 rule] {which} on {x.size} points: worst share of the "
+             f"tolerance kernel {worst['kernel'][0]:.4f} plain "
+             f"{worst['plain'][0]:.4f} | max relative error kernel "
+             f"{worst['kernel'][1]:.3e} plain {worst['plain'][1]:.3e}")
+
     def awgn_codewords(code, n_half: int, ebnos):
         """n_half random codewords at each Eb/N0 (BPSK, AWGN) -> (info bits,
         channel LLRs)."""
@@ -257,13 +312,59 @@ def main() -> None:
         return (int(st_k["iterations"].long().sum()),
                 float(st_k["converged"].float().mean()))
 
-    def k1_work(code, llr, u, it_sum):
-        """Bytes (LLRs in, truth in, counts/stats out) and operations (13
-        fp32 ops per edge and executed iteration: q = Lt - r, clip x2, |q|,
+    def k1_band(code, llr, u, what: str, **kw):
+        """Sum-product: K1 against the plain version in a stated band. Bit
+        agreement > 0.99, iterations > 0.9, converged flags > 0.95; frame
+        error rate (counts mode) within 3 binomial sigma + 0.002, info-bit
+        BER within 5% relative, mean iterations within 2%. Returns the
+        kernel's iteration sum and converged share."""
+        bits_k, st_k = decode_cuda.ldpc_decode_bp_cuda(code, llr, **kw)
+        err_k, stc_k = decode_cuda.ldpc_decode_bp_cuda_counts(code, llr, u,
+                                                              **kw)
+        bits_p, st_p = ldpc_decode_bp_plain(code, llr, **kw)
+        err_p, _ = ldpc_decode_bp_plain(code, llr, count_against=u, **kw)
+        sync()
+        B = llr.shape[0]
+        agree = float((bits_k == bits_p).float().mean())
+        it_agree = float((st_k["iterations"] == st_p["iterations"])
+                         .float().mean())
+        cv_agree = float((st_k["converged"] == st_p["converged"])
+                         .float().mean())
+        fer_k, fer_p = (float((e > 0).float().mean()) for e in (err_k, err_p))
+        ber_k, ber_p = (float(e.double().sum()) / u.numel()
+                        for e in (err_k, err_p))
+        mi_k, mi_p = (float(st["iterations"].double().mean())
+                      for st in (st_k, st_p))
+        fer_tol = 3.0 * (fer_p * (1.0 - fer_p) / B) ** 0.5 + 0.002
+        _log(f"[{what}] sum-product, {B} codewords of n = {code.n}: bit "
+             f"agreement {agree} iterations {it_agree} converged {cv_agree} "
+             f"| FER {fer_k:.5f} plain {fer_p:.5f} (band {fer_tol:.5f}) | "
+             f"BER {ber_k:.5e} plain {ber_p:.5e} | mean iterations "
+             f"{mi_k:.3f} plain {mi_p:.3f}")
+        _check(agree > 0.99 and it_agree > 0.9 and cv_agree > 0.95,
+               f"{what} outside the agreement band")
+        _check(torch.equal(stc_k["iterations"], st_k["iterations"]),
+               f"{what} counts mode ran other iterations than bits mode")
+        _check(abs(fer_k - fer_p) <= fer_tol,
+               f"{what} FER {fer_k} outside {fer_tol} of the plain {fer_p}")
+        _check(abs(ber_k - ber_p) <= 0.05 * ber_p,
+               f"{what} BER {ber_k} outside 5% of the plain {ber_p}")
+        _check(abs(mi_k - mi_p) <= 0.02 * mi_p,
+               f"{what} mean iterations {mi_k} outside 2% of the plain "
+               f"{mi_p}")
+        return (int(st_k["iterations"].long().sum()),
+                float(st_k["converged"].float().mean()))
+
+    def k1_work(code, llr, u, it_sum, algo):
+        """Bytes (LLRs in, truth in, counts/stats out), operations (13 fp32
+        ops per edge and executed iteration: q = Lt - r, clip x2, |q|,
         min/second-min x2, sign, select, offset, max, sign product,
-        posterior add, parity)."""
+        posterior add, parity) and transcendentals: 2 per edge and executed
+        iteration under sum-product (the least a check rule takes, one
+        tanh-like and one log-like), 0 under either min-sum rule."""
+        edge_its = code.dv * code.n * it_sum
         return (llr.numel() * 4 + u.numel() + llr.shape[0] * (4 + 4 + 1),
-                13.0 * code.dv * code.n * it_sum)
+                13.0 * edge_its, 2.0 * edge_its if algo == "sumprod" else 0.0)
 
     code = make_code(cfg.ldpc,
                      cfg.ofdm.n_subcarriers * cfg.ofdm.bits_per_symbol)
@@ -277,7 +378,7 @@ def main() -> None:
     k1_plain_ms = cuda_ms(lambda: ldpc_decode_bp_plain(
         code, llr, count_against=u, **kw), 1)
     # other check rules on a slice: min-sum exact, sum-product in the band of
-    # the JAX kernel-vs-XLA test (tanh/atanh ulps differ)
+    # the JAX kernel-vs-XLA test (the SFU rule against exact exp/log)
     sub = slice(0, 4096)
     for algo, exact in (("minsum", True), ("sumprod", False)):
         kwa = dict(kw, algo=algo)
@@ -298,34 +399,47 @@ def main() -> None:
     kernels["bp_decode"] = _entry(
         "bp_decode", "bp_decode.cu",
         "esn_ofdm_mimo_tpu/ldpc/decode_pallas.py:89",
-        0.0, k1_ms, k1_plain_ms, *k1_work(code, llr, u, it_sum))
+        0.0, k1_ms, k1_plain_ms, *k1_work(code, llr, u, it_sum, kw["algo"]))
     _log(f"[K1 offset-minsum] {llr.shape[0]} codewords at Eb/N0 1.5/2.5 dB: "
          f"bits, iterations, converged, counts identical | mean iterations "
          f"{it_sum / llr.shape[0]:.3f} converged {conv_frac:.4f} | kernel "
          f"{k1_ms:.3f} ms plain {k1_plain_ms:.3f} ms bound "
-         f"{kernels['bp_decode']['bound_ms']:.4f} ms")
+         f"{kernels['bp_decode']['bound_ms']:.4f} ms "
+         f"({kernels['bp_decode']['bound_by']})")
 
-    # K1 at the NBF code: n = 2048, Z = 256, dv * Z = 1,024 threads a block,
-    # (2 + dv) * dc * Z * 4 B = 48 KB of shared memory; both runtime caps
+    # K1 at the NBF code: n = 2048, Z = 256, dv * Z = 1,024 checks, two a
+    # thread, (2 + dv) * dc * Z * 4 B = 48 KB of shared memory a codeword;
+    # both runtime caps
     code_n = make_code(nbf.ldpc,
                        nbf.ofdm.n_subcarriers * nbf.ofdm.bits_per_symbol)
     u_n, llr_n = awgn_codewords(code_n, 6_400, (1.0, 1.5))
     kw_n = dict(max_iter=2 * nbf.ldpc.max_iter, algo=nbf.ldpc.algo,
                 minsum_offset=nbf.ldpc.minsum_offset,
                 pass1_iters=nbf.ldpc.pass1_iters)
+    # both min-sum rules exact at this code too, on a slice (the plain
+    # version's time)
+    sub_n = slice(0, 4096)
     for cap in (nbf.ldpc.max_iter, 2 * nbf.ldpc.max_iter):
-        it_n, conv_n = k1_identical(code_n, llr_n, u_n, f"K1-nbf cap {cap}",
-                                    iter_cap=cap, **kw_n)
-        _log(f"[K1-nbf cap {cap}] {nbf.ldpc.algo}, {llr_n.shape[0]} "
-             f"codewords of n = {code_n.n} at Eb/N0 1.0/1.5 dB: bits, iterations, converged, "
-             f"counts identical | mean iterations {it_n / llr_n.shape[0]:.3f}"
-             f" converged {conv_n:.4f}")
+        for algo in ("offset-minsum", "minsum"):
+            it_m, conv_m = k1_identical(
+                code_n, llr_n[sub_n], u_n[sub_n], f"K1-nbf {algo} cap {cap}",
+                **dict(kw_n, algo=algo, iter_cap=cap))
+            _log(f"[K1-nbf {algo} cap {cap}] {sub_n.stop} codewords of n = "
+                 f"{code_n.n}: bits, iterations, converged, counts identical"
+                 f" | mean iterations {it_m / sub_n.stop:.3f} converged "
+                 f"{conv_m:.4f}")
+    # the preset's own rule, sum-product: the SFU rule against the plain
+    # version's exact exp/log, so a band, not identity
+    for cap in (nbf.ldpc.max_iter, 2 * nbf.ldpc.max_iter):
+        it_n, conv_n = k1_band(code_n, llr_n, u_n, f"K1-nbf cap {cap}",
+                               iter_cap=cap, **kw_n)
     k1n_ms = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
         code_n, llr_n, u_n, iter_cap=cap, **kw_n), 2)
     k1n_plain_ms = cuda_ms(lambda: ldpc_decode_bp_plain(
         code_n, llr_n, iter_cap=cap, count_against=u_n, **kw_n), 1)
-    k1n_bound, k1n_by = _bound(*k1_work(code_n, llr_n, u_n, it_n))
-    _log(f"[K1-nbf cap {cap}] kernel {k1n_ms:.3f} ms plain "
+    k1n_bound, k1n_by = _bound(*k1_work(code_n, llr_n, u_n, it_n,
+                                        kw_n["algo"]))
+    _log(f"[K1-nbf cap {cap}] {kw_n['algo']} kernel {k1n_ms:.3f} ms plain "
          f"{k1n_plain_ms:.3f} ms bound {k1n_bound:.4f} ms ({k1n_by})")
 
     # ---- 3. K2: ESN predict vs its plain version ----------------------------
@@ -555,7 +669,8 @@ def main() -> None:
     kernels["bp_decode_layered"] = _entry(
         "bp_decode_layered", "bp_decode_layered.cu",
         "esn_ofdm_mimo_tpu/ldpc/decode_pallas.py:254",
-        0.0, k1l_ms, k1l_plain_ms, *k1_work(code, llr, u, itl_sum))
+        0.0, k1l_ms, k1l_plain_ms,
+        *k1_work(code, llr, u, itl_sum, kw_l["algo"]))
     _log(f"[K1-layered offset-minsum] {llr.shape[0]} codewords at Eb/N0 "
          f"1.5/2.5 dB, cap 50: bits, iterations, converged, counts identical "
          f"| mean sweeps {itl_sum / llr.shape[0]:.3f} converged "
@@ -571,14 +686,16 @@ def main() -> None:
                 **kwn_l)
             k1ln_ms = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
                 code_n, llr_n, u_n, **kwn_l), 2)
-            k1ln_bound, _ = _bound(*k1_work(code_n, llr_n, u_n, itn_l))
+            k1ln_bound, k1ln_by = _bound(*k1_work(code_n, llr_n, u_n, itn_l,
+                                                  algo))
             _log(f"[K1-layered nbf cap {cap_l}] {algo}, {llr_n.shape[0]} "
                  f"codewords of n = {code_n.n}: bits, iterations, converged, "
                  f"counts identical | mean sweeps "
                  f"{itn_l / llr_n.shape[0]:.3f} converged {convn_l:.4f} | "
-                 f"kernel {k1ln_ms:.3f} ms bound {k1ln_bound:.4f} ms")
-    # the NBF preset's own rule, sum-product (libm's tanh/atanh against
-    # torch's): the agreement band, and its time
+                 f"kernel {k1ln_ms:.3f} ms bound {k1ln_bound:.4f} ms "
+                 f"({k1ln_by})")
+    # the NBF preset's own rule, sum-product (the SFU rule against the plain
+    # version's exact exp/log): the agreement band, its time and bound
     kwn_s = dict(kw_n, schedule="layered", max_iter=100)
     bk, sk = decode_cuda.ldpc_decode_bp_cuda(code_n, llr_n, **kwn_s)
     bp, sp = ldpc_decode_bp_plain(code_n, llr_n, **kwn_s)
@@ -590,11 +707,14 @@ def main() -> None:
            "K1-layered nbf sum-product outside the agreement band")
     k1ls_ms = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
         code_n, llr_n, u_n, **kwn_s), 2)
-    _log(f"[K1-layered nbf cap 100] {nbf.ldpc.algo}: bit agreement {agree} "
+    k1ls_bound, k1ls_by = _bound(*k1_work(
+        code_n, llr_n, u_n, int(sk["iterations"].long().sum()),
+        kwn_s["algo"]))
+    _log(f"[K1-layered nbf cap 100] {kwn_s['algo']}: bit agreement {agree} "
          f"iterations {it_agree} converged {cv_agree} | mean sweeps "
          f"{float(sk['iterations'].float().mean()):.3f} converged "
          f"{float(sk['converged'].float().mean()):.4f} | kernel "
-         f"{k1ls_ms:.3f} ms")
+         f"{k1ls_ms:.3f} ms bound {k1ls_bound:.4f} ms ({k1ls_by})")
 
     # layered at cap 50 against flooding at cap 100, the same codewords: the
     # band of the JAX package's schedule test

@@ -15,8 +15,11 @@
 //
 // What bounds it on the H100. As for flooding: ~2.6 KB of device memory per
 // codeword, and up to `cap` sweeps over dv*dc*Z edges in between, so the
-// time is instruction throughput, shared-memory access and barriers, and depends
-// on the data (a codeword stops at its first zero syndrome).
+// time is instruction throughput, shared-memory access and barriers, and
+// depends on the data (a codeword stops at its first zero syndrome). Under
+// sum-product the check rule's 4 SFU operations an edge (bp_common.cuh) add
+// the special-function unit's rate: 0.141 ms a sweep over 12,800 codewords
+// at n = 2048, 0.096 under offset min-sum (tools/bench_bp_torch.py).
 //
 // Design. Within a layer every variable belongs to exactly one check, so the
 // Z checks of a layer update Lt in place without atomics, but layers must
@@ -35,8 +38,9 @@
 //     and the wrapper's pass1_iters has nothing to compact;
 //   * one subtract and one add per edge and no sum over rows: there is no
 //     summation order to match, and with --fmad=false both min-sum rules are
-//     bit-identical to the plain version; sum-product differs by the
-//     libraries' tanh/atanh ulps;
+//     bit-identical to the plain version; sum-product differs by the SFU's
+//     ulps (the rule clips q itself, so the posterior's unclipped q is the
+//     rule's input);
 //   * the channel LLRs only initialise Lt; permutation, counts mode and the
 //     runtime cap are as in the flooding kernel.
 
@@ -46,7 +50,6 @@ namespace {
 
 using namespace bp;
 
-constexpr int kDv = 4;           // variable degree of every code the presets build
 constexpr int kMaxThreads = 256;  // Z <= 256 (n = 2048)
 
 template <int DV, int DC>
@@ -102,13 +105,10 @@ __global__ void __launch_bounds__(kMaxThreads) bp_layered_kernel(
   while (!ok && it < cap) {
 #pragma unroll
     for (int i = 0; i < DV; ++i) {
-      float q[DC], qc[DC];
+      float q[DC];  // unclipped: it rebuilds the posterior; the rule clips
 #pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        q[j] = Lt[vj[i][j]] - r[i][j];
-        qc[j] = clip_msg(q[j]);
-      }
-      check_update<DC>(qc, r[i], algo, scale, offset);
+      for (int j = 0; j < DC; ++j) q[j] = Lt[vj[i][j]] - r[i][j];
+      check_update<DC>(q, r[i], algo, scale, offset);
 #pragma unroll
       for (int j = 0; j < DC; ++j) Lt[vj[i][j]] = q[j] + r[i][j];
       __syncthreads();  // the next layer reads what this one wrote

@@ -15,8 +15,10 @@ OFDM_SISO_NBF_LDPC.py:484):
     the check sees clip(q, +-16), Lt = q + r_i'. About half the flooding
     iterations reach the same BER, so layered runs at max_iter / 2;
   * var->check messages clipped to +-16; check rules "sumprod" (tanh rule,
-    product clipped to +-0.9999999), "minsum" (normalised, x minsum_scale)
-    and "offset-minsum" (max(min(loo, 16) - beta, 0), the flagship rule);
+    product clipped to +-0.9999999, 2*atanh(p) in the TPU kernel's form
+    log((1+p)/(1-p)); see `tanh_half`, `log_ratio`), "minsum" (normalised,
+    x minsum_scale) and "offset-minsum" (max(min(loo, 16) - beta, 0), the
+    flagship rule);
   * the syndrome is checked after every iteration (and on the channel
     decision before any); each codeword freezes at its first zero syndrome,
     an unconverged one keeps its decision after `cap` iterations;
@@ -42,6 +44,9 @@ MSG_CLIP = 16.0
 _SP_CLIP = 0.9999999
 ALGOS = ("sumprod", "minsum", "offset-minsum")
 SCHEDULES = ("flooding", "layered")
+# Switches of the flooding kernel's attribution builds (csrc/bp_decode.cu,
+# launched only by tools/bench_bp_torch.py): a mask, 0 in every decode.
+DIAG_FIXED, DIAG_COPY_RULE, DIAG_NO_SYNDROME, DIAG_NO_VAR_UPDATE = 1, 2, 4, 8
 
 
 def llr_from_yobs(y_obs: torch.Tensor, snr_db: float = 1.0) -> torch.Tensor:
@@ -71,11 +76,35 @@ def _effective_cap(max_iter: int, iter_cap) -> int:
     return int(iter_cap)
 
 
+def tanh_half(q: torch.Tensor) -> torch.Tensor:
+    """t = tanh(q / 2) in float32, the BP kernels' formula (bp_common.cuh):
+    the odd Taylor polynomial q / 2 - q^3 / 24 where |q| < 1/8 (there 1 - e
+    would cancel), else sign(q) (1 - e) / (1 + e) with e = exp(-|q|), which
+    cannot overflow. The kernels evaluate the same with the card's ex2/rcp
+    approximations and a fused multiply-add; the two differ by a few
+    ulps."""
+    poly = q * (q * q * (-1.0 / 24.0) + 0.5)
+    e = torch.exp(-q.abs())
+    return torch.where(q.abs() < 0.125, poly,
+                       torch.copysign((1.0 - e) / (1.0 + e), q))
+
+
+def log_ratio(p: torch.Tensor) -> torch.Tensor:
+    """r = 2 atanh(p) in float32 as log((1 + p) / (1 - p)), the form of the
+    TPU kernel (esn_ofdm_mimo_tpu/ldpc/decode_pallas.py:231), with the odd
+    Taylor polynomial 2 p + 2 p^3 / 3 where |p| < 1/16 (there 1 + p drops
+    p's low bits). The kernels evaluate the same with the card's lg2/rcp
+    approximations."""
+    poly = p * (p * p * (2.0 / 3.0) + 2.0)
+    return torch.where(p.abs() < 0.0625, poly,
+                       torch.log((1.0 + p) / (1.0 - p)))
+
+
 def _check_update(q: torch.Tensor, algo: str, minsum_scale: float,
                   minsum_offset: float) -> torch.Tensor:
     """q (B, m, dc) clipped var->check messages -> check->var messages."""
     if algo == "sumprod":
-        t = torch.tanh(0.5 * q)
+        t = tanh_half(q)
         dc = t.shape[-1]
         fwd = [torch.ones_like(t[..., 0])]
         for j in range(dc - 1):
@@ -85,7 +114,7 @@ def _check_update(q: torch.Tensor, algo: str, minsum_scale: float,
             bwd.append(bwd[-1] * t[..., j])
         bwd = bwd[::-1]
         prod = torch.stack([f * b for f, b in zip(fwd, bwd)], dim=-1)
-        return 2.0 * torch.atanh(torch.clamp(prod, -_SP_CLIP, _SP_CLIP))
+        return log_ratio(torch.clamp(prod, -_SP_CLIP, _SP_CLIP))
     sgn = torch.where(q < 0, -1.0, 1.0)
     sgn_loo = sgn.prod(-1, keepdim=True) * sgn          # exact: +-1 values
     mag = q.abs()
@@ -100,9 +129,18 @@ def _check_update(q: torch.Tensor, algo: str, minsum_scale: float,
 
 
 def _decode_flooding(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
-                     algo: str, minsum_scale: float, minsum_offset: float):
+                     algo: str, minsum_scale: float, minsum_offset: float,
+                     diag: int = 0):
     """Flooding BP in natural order. llr_nat (B, n) -> (bits_nat (B, n)
-    bool, iterations (B,) int32, converged (B,) bool)."""
+    bool, iterations (B,) int32, converged (B,) bool).
+
+    `diag` (a mask of DIAG_*, 0 in every decode) selects the plain version
+    of one of the kernel's attribution builds, whose results are wrong by
+    design: DIAG_FIXED never exits (every codeword runs `cap` iterations),
+    DIAG_COPY_RULE makes the check rule return its inputs, and
+    DIAG_NO_VAR_UPDATE keeps the posteriors at the channel LLRs.
+    DIAG_NO_SYNDROME only removes work from the kernel: with DIAG_FIXED the
+    syndrome decides nothing."""
     dev = llr_nat.device
     ck = torch.as_tensor(code.qc.ck_cols_nat, dtype=torch.int64, device=dev)
     ve = torch.as_tensor(code.qc.var_edge_nat, dtype=torch.int64, device=dev)
@@ -118,7 +156,8 @@ def _decode_flooding(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
         return lc + s
 
     def syndrome_ok(d):
-        return (d[:, ck].sum(-1) % 2 == 0).all(-1)
+        ok = (d[:, ck].sum(-1) % 2 == 0).all(-1)
+        return torch.zeros_like(ok) if diag & DIAG_FIXED else ok
 
     lc = llr_nat.to(torch.float32)
     d = lc < 0
@@ -132,8 +171,10 @@ def _decode_flooding(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
         if act.numel() == 0:
             break
         q = torch.clamp(lt_a[:, ck] - r_a, -MSG_CLIP, MSG_CLIP)
-        r_a = _check_update(q, algo, minsum_scale, minsum_offset)
-        lt_a = posterior(lc_a, r_a)
+        r_a = q if diag & DIAG_COPY_RULE else _check_update(
+            q, algo, minsum_scale, minsum_offset)
+        if not diag & DIAG_NO_VAR_UPDATE:
+            lt_a = posterior(lc_a, r_a)
         d_a = lt_a < 0
         ok = syndrome_ok(d_a)
         last = it + 1 == cap

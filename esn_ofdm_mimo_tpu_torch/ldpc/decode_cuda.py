@@ -1,5 +1,7 @@
 """Wrapper of the CUDA BP decoders: flooding (csrc/bp_decode.cu) and
-row-layered (csrc/bp_decode_layered.cu).
+row-layered (csrc/bp_decode_layered.cu); beside them the flooding kernel's
+attribution builds (`ldpc_decode_bp_diag`, for tools/bench_bp_torch.py) and
+its sum-product check rule on its own (`sumprod_rule`, for chip_smoke.py).
 
 Counterpart of esn_ofdm_mimo_tpu/ldpc/decode_pallas.py. For a CUDA tensor
 the wrapper launches the kernel of the schedule (one codeword per thread
@@ -21,25 +23,38 @@ import torch
 
 from ..utils import build
 from .code import LdpcCode
-from .decode import ALGOS, _check_args, _effective_cap, ldpc_decode_bp_plain
+from .decode import (ALGOS, _check_args, _decode_flooding,
+                     _effective_cap, ldpc_decode_bp_plain, log_ratio,
+                     tanh_half)
 
 # Launches of the flooding and of the layered kernel since the counts were
-# last reset (by the caller).
+# last reset (by the caller); of the attribution builds and of the check
+# rule on its own, counted apart: they are no decode.
 launches = 0
 launches_layered = 0
+launches_diag = 0
+launches_rule = 0
+
+# The attribution builds of csrc/bp_decode.cu (masks of decode.DIAG_*;
+# each holds DIAG_FIXED): the kernel at a fixed iteration count, then the
+# check rule a copy of its inputs, the syndrome removed, the variable update
+# removed, and all three.
+DIAG_BUILDS = (1, 3, 5, 9, 15)
 
 _ALGO_ID = {a: i for i, a in enumerate(ALGOS)}
-_DC = 8          # the check degree the kernels are built for
-_DV_LAYERED = 4  # the variable degree the layered kernel is built for
+_DC, _DV = 8, 4  # the check and variable degrees the kernels are built for
 _SOURCES = {"flooding": "bp_decode", "layered": "bp_decode_layered"}
 
 
+# argument types of the two decoders' launchers (csrc/*.cu), less the stream
+_DECODE_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
+                + (ctypes.c_float, ctypes.c_float))
+
+
 @functools.lru_cache(maxsize=None)
-def _lib(schedule: str):
-    name = _SOURCES[schedule]
-    fn = getattr(build.load(name), f"{name}_launch")
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+def _fn(source: str, symbol: str, argtypes: tuple):
+    fn = getattr(build.load(source), symbol)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
@@ -62,19 +77,16 @@ def _code_tensors(code: LdpcCode, device: torch.device):
 
 
 def _launch(code: LdpcCode, llr: torch.Tensor, truth, cap: int, algo: str,
-            minsum_scale: float, minsum_offset: float, schedule: str):
-    global launches, launches_layered
+            minsum_scale: float, minsum_offset: float, schedule: str,
+            diag: int = 0):
+    global launches, launches_layered, launches_diag
     if llr.dtype != torch.float32 or llr.dim() != 2 or llr.shape[1] != code.n:
         raise ValueError(f"llr must be float32 (B, {code.n}); got "
                          f"{tuple(llr.shape)} {llr.dtype}")
-    if code.dc != _DC or code.dv * code.qc.Z > 1024:
-        raise ValueError(f"the BP kernels take dc = {_DC} and "
-                         f"dv*Z <= 1024; got dc={code.dc}, "
-                         f"dv*Z={code.dv * code.qc.Z}")
-    if schedule == "layered" and (code.dv != _DV_LAYERED
-                                  or code.qc.Z > 256):
-        raise ValueError(f"the layered BP kernel takes dv = {_DV_LAYERED} "
-                         f"and Z <= 256; got dv={code.dv}, Z={code.qc.Z}")
+    if code.dc != _DC or code.dv != _DV or code.qc.Z > 256:
+        raise ValueError(f"the BP kernels take dc = {_DC}, dv = {_DV} and "
+                         f"Z <= 256; got dc={code.dc}, dv={code.dv}, "
+                         f"Z={code.qc.Z}")
     llr = llr.contiguous()
     dev = llr.device
     B = llr.shape[0]
@@ -90,15 +102,24 @@ def _launch(code: LdpcCode, llr: torch.Tensor, truth, cap: int, algo: str,
     else:
         out = torch.empty(B, code.n, dtype=torch.int8, device=dev)
         bits_ptr, err_ptr, truth_ptr = out.data_ptr(), None, None
-    rc = _lib(schedule)(llr.data_ptr(), inv_perm.data_ptr(), shifts.data_ptr(),
-                truth_ptr, info_cols.data_ptr(), bits_ptr, err_ptr,
-                iters.data_ptr(), conv.data_ptr(), B, code.qc.Z, code.dv,
-                code.dc, code.k, cap, _ALGO_ID[algo], float(minsum_scale),
-                float(minsum_offset), torch.cuda.current_stream(dev).cuda_stream)
+    args = (llr.data_ptr(), inv_perm.data_ptr(), shifts.data_ptr(), truth_ptr,
+            info_cols.data_ptr(), bits_ptr, err_ptr, iters.data_ptr(),
+            conv.data_ptr(), B, code.qc.Z, code.dv, code.dc, code.k, cap,
+            _ALGO_ID[algo], float(minsum_scale), float(minsum_offset))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name = _SOURCES[schedule]
+    if diag:
+        rc = _fn(name, "bp_decode_diag_launch",
+                 _DECODE_ARGS + (ctypes.c_int, ctypes.c_void_p))(
+            *args, diag, stream)
+    else:
+        rc = _fn(name, f"{name}_launch", _DECODE_ARGS + (ctypes.c_void_p,))(
+            *args, stream)
     if rc != 0:
-        raise RuntimeError(f"{_SOURCES[schedule]}_launch failed: CUDA error "
-                           f"{rc}")
-    if schedule == "layered":
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    if diag:
+        launches_diag += 1
+    elif schedule == "layered":
         launches_layered += 1
     else:
         launches += 1
@@ -141,3 +162,54 @@ def ldpc_decode_bp_cuda_counts(code: LdpcCode, llr: torch.Tensor,
     no bits."""
     return _decode(code, llr, info_bits, max_iter, algo, minsum_scale,
                    iter_cap, schedule, pass1_iters, minsum_offset)
+
+
+def ldpc_decode_bp_diag(code: LdpcCode, llr: torch.Tensor, cap: int,
+                        algo: str, diag: int, minsum_scale: float = 0.75,
+                        minsum_offset: float = 0.625):
+    """One of the flooding kernel's attribution builds (`diag` in
+    DIAG_BUILDS): `cap` iterations for every codeword, results wrong by
+    design, (bits (B, n) int8, stats) as ldpc_decode_bp_cuda. For a CPU
+    tensor, the plain version of the same build."""
+    if diag not in DIAG_BUILDS:
+        raise ValueError(f"no attribution build {diag}; built: {DIAG_BUILDS}")
+    _check_args(code, algo, "flooding")
+    if llr.device.type == "cpu":
+        qc = code.qc
+        bits, iters, conv = _decode_flooding(
+            code, llr.to(torch.float32)[:, torch.as_tensor(qc.inv_perm)],
+            int(cap), algo, minsum_scale, minsum_offset, diag)
+        return (bits[:, torch.as_tensor(qc.perm)].to(torch.int8),
+                {"iterations": iters, "converged": conv})
+    if llr.device.type != "cuda":
+        raise ValueError(f"unsupported device {llr.device}")
+    return _launch(code, llr, None, int(cap), algo, minsum_scale,
+                   minsum_offset, "flooding", diag)
+
+
+def sumprod_rule(x: torch.Tensor, which: str) -> torch.Tensor:
+    """The sum-product check rule's two functions on their own, elementwise
+    on a float32 tensor: which="t" gives tanh(x / 2), which="r"
+    log((1 + x) / (1 - x)), as the BP kernels compute them (csrc/
+    bp_common.cuh, through a small kernel of csrc/bp_decode.cu); for a CPU
+    tensor the plain versions decode.tanh_half and decode.log_ratio."""
+    global launches_rule
+    if which not in ("t", "r"):
+        raise ValueError(f"which must be 't' or 'r', got {which!r}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be float32, got {x.dtype}")
+    if x.device.type == "cpu":
+        return tanh_half(x) if which == "t" else log_ratio(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    rc = _fn("bp_decode", "bp_sumprod_rule_launch",
+             (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p))(
+        x.data_ptr(), y.data_ptr(), x.numel(), 0 if which == "t" else 1,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bp_sumprod_rule_launch failed: CUDA error {rc}")
+    launches_rule += 1
+    return y
