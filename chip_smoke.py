@@ -21,6 +21,11 @@ nvcc per source, all started together; sm_90a), then:
      4,096 codewords, the preset's own rule (sum-product) on 12,800 in a
      band (bit, iteration and converged agreement; FER, BER and mean
      iterations against the plain version's);
+     [K1 Z384], [K1 Z512] and [K1-layered Z384], [K1-layered Z512]: the
+     codes of the NBF presets at 64- and 256-QAM (n = 3,072 and 4,096), 2,048
+     codewords at Eb/N0 1.0 and 1.5 dB: both min-sum rules identical to the
+     plain version, sum-product in the band, each line with the launch plan
+     (threads, checks a thread, shared memory), ms and bound;
   3. K2, the ESN predict recurrence (csrc/esn_predict.cu), against its plain
      version at the flagship detect shape (9,472 rows, T = 138, n_res = 300,
      128 readouts of 74 rows): noise 0 within atol 1e-4 / rtol 1e-3, noise
@@ -30,9 +35,17 @@ nvcc per source, all started together; sm_90a), then:
      are smaller than the card's SM count (100 rows); each line prints the
      tiling the wrapper chose (rows a block, blocks, blocks an SM, shared
      memory);
-  4. K3, the ESN state harvest (csrc/esn_states.cu), against plain
-     esn_states at the mimo_4x8_nbf fit shape (128 x 522 x 600) and the
-     flagship fit shape (128 x 138 x 300), the same tolerances;
+  4. K3, the ESN state harvest (csrc/esn_states.cu, a thread-block cluster
+     kernel), against plain esn_states at the mimo_4x8_nbf fit shape (128 x
+     522 x 600) and the flagship fit shape (128 x 138 x 300), the same
+     tolerances; each line prints the cluster plan the wrapper chose
+     (`models/esn_states_cuda.py:states_plan`: CTAs a cluster, clusters,
+     rows a cluster and its row tile, columns and shared memory a CTA), the
+     kernel's ms beside its time before the cluster design, and the
+     yardstick: one cuDNN call of torch.nn.RNN (tanh, no bias) that computes
+     the same function at noise 0, its ms and its error against plain (the
+     port never calls it; its ms is K3's library_ms); [K3 ragged] 100, 9 and
+     300 rows at the NBF fit shape;
   5. K4, the grouped-readout predict (csrc/esn_predict_grouped.cu), against
      plain grouped esn_predict and against K2 at the flagship detect shape,
      [K4-nbf] the same at the mimo_4x8_nbf detect shape (3 slots a block);
@@ -71,10 +84,13 @@ nvcc per source, all started together; sm_90a), then:
        run's band, decode ms of both;
        [curve nbf] the CLI on mimo_4x8_nbf at 3 and 12 dB, 128 blocks:
        artifacts written, BERs equal to `nbf_snr_point` on the same keys;
+       [curve nbf qam6] the same with --qam-bits 6 at 12 dB: K1 at n =
+       3,072 (Z = 384), the CSV equal to `nbf_snr_point` on the same keys;
   8. one JSON line listing the kernels (launches on the main paths, error
      against the plain version, times, bound: the largest of bytes over the
      memory rate, fp32 operations over the fp32 peak and transcendentals
-     over the special-function unit's rate), then the card line and the
+     over the special-function unit's rate; library_ms the cuDNN RNN's for
+     K3, null for the others), then the card line and the
      final {"ok": true, ...} line.
 
 Every phase ends in torch.cuda.synchronize(); any failure exits non-zero
@@ -156,7 +172,8 @@ def main() -> None:
     from esn_ofdm_mimo_tpu_torch.models import esn_cuda, esn_states_cuda
     from esn_ofdm_mimo_tpu_torch.models.esn import (EsnScale, esn_predict,
                                                     esn_states,
-                                                    init_reservoir)
+                                                    init_reservoir,
+                                                    scale_inputs)
     import dataclasses
 
     from esn_ofdm_mimo_tpu_torch.experiments import run as cli
@@ -442,6 +459,41 @@ def main() -> None:
     _log(f"[K1-nbf cap {cap}] {kw_n['algo']} kernel {k1n_ms:.3f} ms plain "
          f"{k1n_plain_ms:.3f} ms bound {k1n_bound:.4f} ms ({k1n_by})")
 
+    # K1 and K1-layered above Z = 256: the codes of the NBF presets at 64-
+    # and 256-QAM (--qam-bits 6 / 8: n = 3,072 and 4,096, Z = 384 and 512),
+    # 2,048 codewords at two Eb/N0; flooding two checks a thread in blocks
+    # of 768 / 1,024 threads, layered one thread a lifted index
+    for m_bits in (6, 8):
+        code_w = make_code(nbf.ldpc, nbf.ofdm.n_subcarriers * m_bits)
+        Zw = code_w.qc.Z
+        u_w, llr_w = awgn_codewords(code_w, 1024, (1.0, 1.5))
+        for sched, tag, cap_w in (("flooding", "K1", 100),
+                                  ("layered", "K1-layered", 50)):
+            plan_w = decode_cuda.bp_plan(Zw, sched)
+            for algo in ("offset-minsum", "minsum", "sumprod"):
+                kw_w = dict(max_iter=cap_w, schedule=sched, algo=algo,
+                            minsum_offset=nbf.ldpc.minsum_offset)
+                what = f"{tag} Z{Zw} {algo}"
+                if algo == "sumprod":
+                    it_w, conv_w = k1_band(code_w, llr_w, u_w, what, **kw_w)
+                    same = "in the band"
+                else:
+                    it_w, conv_w = k1_identical(code_w, llr_w, u_w, what,
+                                                **kw_w)
+                    same = "bits, iterations, converged, counts identical"
+                ms_w = cuda_ms(
+                    lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
+                        code_w, llr_w, u_w, **kw_w), 2)
+                b_w, by_w = _bound(*k1_work(code_w, llr_w, u_w, it_w, algo))
+                _log(f"[{tag} Z{Zw}] {algo}, {llr_w.shape[0]} codewords of "
+                     f"n = {code_w.n} at Eb/N0 1.0/1.5 dB, cap {cap_w} "
+                     f"({plan_w.threads} threads, {plan_w.checks_per_thread}"
+                     f" checks a thread, {plan_w.smem_bytes} B shared): "
+                     f"{same} | mean iterations "
+                     f"{it_w / llr_w.shape[0]:.3f} converged {conv_w:.4f} | "
+                     f"kernel {ms_w:.3f} ms bound {b_w:.4f} ms ({by_w})")
+    del u_w, llr_w
+
     # ---- 3. K2: ESN predict vs its plain version ----------------------------
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -570,18 +622,52 @@ def main() -> None:
     del pk_n, pp_n, pg_n, inputs_n
 
     # ---- 4. K3: ESN state harvest vs its plain version ----------------------
-    def k3_phase(c, label: str, seed: int):
-        """K3 against plain esn_states at the fit shape of config c (128
-        blocks of one pilot each): returns (error, ms, plain ms, bytes,
-        operations)."""
+    def k3_plan_str(p) -> str:
+        return (f"cluster {p.cluster} CTAs x {p.clusters} clusters, "
+                f"{p.rows_per_cluster} rows a cluster in tiles of "
+                f"{p.row_tile}, {p.cols_per_cta} columns a CTA, "
+                f"{p.smem_bytes} B shared a CTA")
+
+    def k3_operands(c, B_k: int, seed: int):
+        """Reservoir, inputs and scaled teachers of a fit of config c."""
         n_res = c.esn.n_reservoir
         n_in, n_out = 2 * c.channel.n_rx, 2 * c.channel.n_tx
         T = (c.ofdm.n_subcarriers + c.ofdm.cp_len
              + c.esn.shared_delay(c.ofdm.isi_duration))
         r = init_reservoir(rng.prng_key(seed, dev), n_in, n_out, n_res,
                            c.esn.spectral_radius, c.esn.sparsity, 0.0)
-        x = torch.randn(G, T, n_in, generator=gen, device=dev)
-        d = 0.5 * torch.randn(G, T, n_out, generator=gen, device=dev)
+        x = torch.randn(B_k, T, n_in, generator=gen, device=dev)
+        d = 0.5 * torch.randn(B_k, T, n_out, generator=gen, device=dev)
+        return r, x, d
+
+    def k3_rnn(r, x, d):
+        """The library yardstick: one cuDNN call of a single-layer tanh RNN
+        without bias on x_t = [u_t; d_{t-1}], weight_ih = [W_in_t; W_fb_t]^T,
+        weight_hh = Wt^T, h_0 = 0 — K3's function at noise 0. Timed here
+        only; the port never calls it. Returns (run, its states)."""
+        n_in, n_out = x.shape[2], d.shape[2]
+        rnn = torch.nn.RNN(n_in + n_out, r.Wt.shape[0], nonlinearity="tanh",
+                           bias=False, batch_first=True).to(dev)
+        with torch.no_grad():
+            rnn.weight_ih_l0.copy_(torch.cat([r.W_in_t, r.W_fb_t]).T)
+            rnn.weight_hh_l0.copy_(r.Wt.T)
+        xz = torch.cat([scale_inputs(scale, x)[:, 1:], d[:, :-1]],
+                       dim=2).contiguous()
+
+        def run():
+            with torch.no_grad():
+                return rnn(xz)[0]
+        return run, run()
+
+    def k3_phase(c, label: str, seed: int, before_ms: float):
+        """K3 against plain esn_states and the cuDNN RNN at the fit shape of
+        config c (128 blocks of one pilot each): returns (error, ms, plain
+        ms, bytes, operations, RNN ms). `before_ms` is the time the kernel
+        took on an H100 (700 W) before the cluster design, when each block
+        streamed the whole weight from L2 every step."""
+        r, x, d = k3_operands(c, G, seed)
+        n_res, (B_k, T, n_in), n_out = r.Wt.shape[0], x.shape, d.shape[2]
+        plan = esn_states_cuda.device_plan(B_k, n_res, n_in, n_out, dev)
         sk = esn_states_cuda.esn_states_cuda(r, scale, x, d, 0)
         sp = esn_states(r, scale, x, d)
         err = close(sk, sp, f"K3 {label}")
@@ -591,26 +677,50 @@ def main() -> None:
         r_k3, r_p3 = noise_band(
             esn_states_cuda.esn_states_cuda(rn, scale, x, d, 12345),
             esn_states(rn, scale, x, d, g3), sp, f"K3 {label}")
-        ms = cuda_ms(lambda: esn_states_cuda.esn_states_cuda(
-            r, scale, x, d, 0), 3)
+        run_rnn, s_rnn = k3_rnn(r, x, d)
+        sync()    # the yardstick's error is printed, not gated
+        rnn_err = float((s_rnn - sp[:, 1:]).abs().max())
+        run_k3 = lambda: esn_states_cuda.esn_states_cuda(       # noqa: E731
+            r, scale, x, d, 0)
+        # in turns on one card: kernel, RNN, RNN, kernel
+        t = [cuda_ms(f, 3) for f in (run_k3, run_rnn, run_rnn, run_k3)]
+        ms, rnn_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         plain_ms = cuda_ms(lambda: esn_states(r, scale, x, d), 2)
         # bytes: inputs, teachers and weights read once, states written once;
         # operations: 2 per multiply-add of [Wt; W_in; W_fb] per row and step
         n_bytes = 4 * (x.numel() + d.numel() + sk.numel()
                        + n_res * (n_res + n_in + n_out))
-        ops = 2.0 * G * (T - 1) * n_res * (n_res + n_in + n_out)
+        ops = 2.0 * B_k * (T - 1) * n_res * (n_res + n_in + n_out)
         bound_ms, by = _bound(n_bytes, ops)
-        _log(f"[K3 {label}] {G} x {T} x {n_res}: max abs err {err:.3e} | "
-             f"noise RMS kernel {r_k3:.4e} plain {r_p3:.4e} | kernel "
-             f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms "
-             f"({by}, {ops / 1e9:.1f} GFLOP)")
-        return err, ms, plain_ms, n_bytes, ops
+        _log(f"[K3 {label}] {B_k} x {T} x {n_res} ({k3_plan_str(plan)}): "
+             f"max abs err {err:.3e} | noise RMS kernel {r_k3:.4e} plain "
+             f"{r_p3:.4e} | kernel {ms:.3f} ms (streaming design: "
+             f"{before_ms}) cuDNN RNN "
+             f"{rnn_ms:.3f} ms (max abs err vs plain {rnn_err:.3e}) plain "
+             f"{plain_ms:.3f} ms bound {bound_ms:.4f} ms ({by}, "
+             f"{ops / 1e9:.1f} GFLOP)")
+        return err, ms, plain_ms, n_bytes, ops, rnn_ms
 
-    k3 = k3_phase(nbf, "nbf fit", 9)
-    k3_phase(cfg, "flagship fit", 10)
+    *k3, k3_rnn_ms = k3_phase(nbf, "nbf fit", 9, 11.155)
+    k3_phase(cfg, "flagship fit", 10, 1.519)
     kernels["esn_states"] = _entry(
         "esn_states", "esn_states.cu",
         "esn_ofdm_mimo_tpu/models/esn_pallas.py:346", *k3)
+    kernels["esn_states"]["library_ms"] = k3_rnn_ms
+    # rows that fill no whole tile, fewer rows than clusters, and more rows
+    # than the card holds clusters of 8 rows (tiles run in turn)
+    for B_r in (100, 9, 300):
+        r, x, d = k3_operands(nbf, B_r, 11)
+        plan_r = esn_states_cuda.device_plan(B_r, r.Wt.shape[0], x.shape[2],
+                                             d.shape[2], dev)
+        run_r = lambda: esn_states_cuda.esn_states_cuda(         # noqa: E731
+            r, scale, x, d, 0)
+        err_r = close(run_r(), esn_states(r, scale, x, d),
+                      f"K3 ragged {B_r}")
+        _log(f"[K3 ragged] rows {B_r} at the NBF fit shape "
+             f"({k3_plan_str(plan_r)}): max abs err {err_r:.3e} | kernel "
+             f"{cuda_ms(run_r, 2):.3f} ms")
+    del r, x, d
 
     # ---- 5. K4: grouped-readout predict vs plain and K2 ---------------------
     pg = esn_cuda.esn_predict_cuda(res, scale, Wt_out, inputs, n_forget, 0,
@@ -1117,6 +1227,49 @@ def main() -> None:
              f"results_ber.csv and channel_metrics_4x8.pkl written, BERs "
              f"equal to nbf_snr_point on the same keys | wall "
              f"{1e3 * wall_cn:.1f} ms | launches {la_cn}")
+
+        # 64-QAM on the block-fading preset: n = 512 x 6 = 3,072, Z = 384
+        out_q = os.path.join(tmp, "nbf_qam6")
+        _, _, wall_q, la_q = count_run(
+            lambda ph: cli.main(
+                ["--preset", "mimo_4x8_nbf", "--ebno-list", "12",
+                 "--blocks-per-device", "128", "--blocks-per-snr", "128",
+                 "--qam-bits", "6", "--outdir", out_q]),
+            ("bp_decode", "esn_predict", "esn_states"), "curve nbf qam6")
+        Zq = make_code(nbf.ldpc, nbf.ofdm.n_subcarriers * 6).qc.Z
+        head_q, rows_q = read_csv(os.path.join(out_q, "results_ber.csv"))
+        _check(Zq == 384 and head_q == head_n and len(rows_q) == 1
+               and rows_q[0][0] == 12.0
+               and os.path.exists(os.path.join(out_q,
+                                               "channel_metrics_4x8.pkl")),
+               f"curve nbf qam6: unexpected artifacts {head_q} {rows_q}")
+        ber_q = {d: (rows_q[0][1 + i], rows_q[0][1 + len(dets) + i])
+                 for i, d in enumerate(dets)}
+        _check(all(0.0 < u_ < 0.5 for u_, _ in ber_q.values()),
+               f"curve nbf qam6: uncoded BER not in (0, 0.5): {ber_q}")
+        # the same point through nbf_snr_point on the same keys: the CSV is
+        # its BERs. No "coded <= uncoded" gate: at 64-QAM this preset's MMSE
+        # BER floors near 0.17 even at 28 dB, beyond the rate-1/2 code, and
+        # its coded BER lies above the uncoded one in the JAX package's CLI
+        # too (PERF.md, open questions); tests/test_torch_nbf_qam6.py holds
+        # the 64-QAM path against the JAX package on the CPU.
+        cfg_q = dataclasses.replace(nbf, ofdm=dataclasses.replace(
+            nbf.ofdm, bits_per_symbol=6))
+        pt_q = nbf_snr_point(cfg_q, 12.0, rng.block_keys(
+            rng.prng_key(nbf.seed), 0, torch.arange(G_nbf)).reshape(
+                1, G_nbf, 2))
+        for i, d in enumerate(dets):
+            want_q = (pt_q.bit_errors[d] / pt_q.total_bits,
+                      pt_q.info_errors[d] / pt_q.total_info_bits)
+            tol = 1e-3 if d.startswith("esn") else 0.0
+            _check(all(abs(a_ - b_) <= tol * b_
+                       for a_, b_ in zip(ber_q[d], want_q)),
+                   f"curve nbf qam6 {d}: CSV {ber_q[d]} against "
+                   f"nbf_snr_point's {want_q}")
+        _log(f"[curve nbf qam6] CLI mimo_4x8_nbf --qam-bits 6 at 12 dB, 128 "
+             f"blocks (n = 3,072, Z = {Zq}): (uncoded, coded) BER {ber_q}, "
+             f"equal to nbf_snr_point on the same keys | "
+             f"wall {1e3 * wall_q:.1f} ms | launches {la_q}")
 
     if "--profile" in sys.argv[1:]:
         _profile_main_path(

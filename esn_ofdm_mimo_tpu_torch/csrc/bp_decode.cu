@@ -23,15 +23,21 @@
 // 128-codeword tile) is not carried over:
 //   * one codeword per thread block, one thread per lifted check (i, z'),
 //     or per two (z' and z' + Z / 2 of one base row) where dv * Z threads
-//     would fill a block of 1,024 and hold an SM alone (n = 2048): then two
-//     codewords share an SM, and one's variable pass and barriers overlap
-//     the other's SFU-bound check pass (checks_per_thread). The static
-//     cyclic routing becomes dc byte offsets of (j * Z + (z' - s[i][j]) mod
-//     Z) computed once, the second check's those with one bit flipped;
+//     would fill a block of 1,024 (n = 2048: then two codewords share an
+//     SM, and one's variable pass and barriers overlap the other's
+//     SFU-bound check pass) or exceed it (n = 3,072 and 4,096, the NBF
+//     presets at 64- and 256-QAM: 768 and 1,024 threads, one codeword an
+//     SM); checks_per_thread. The static cyclic routing becomes dc byte
+//     offsets of (j * Z + (z' - s[i][j]) mod Z) computed once; the second
+//     check's are those with the bit of Z / 2 flipped where Z is a power of
+//     two (FLIP), else those plus or minus Z / 2 within the column block,
+//     the sign from one bit a variable of a register mask (on an H100 at
+//     Z = 256 the flip takes 9-13% less time an iteration than the mask,
+//     tools/bench_bp_torch.py);
 //   * messages never leave the SM: a check's own dc messages stay in
 //     registers across all iterations, and a var-domain copy R[i][v]
 //     (dv*n f32) plus the channel LLRs and posteriors (2 x n f32) live in
-//     shared memory (48 KB at n = 2048);
+//     shared memory (48 KB at n = 2048, 98 KB at n = 4,096);
 //   * two barriers an iteration. The check pass reads the posteriors once
 //     for both the rule and the syndrome (their sign parity), writes R, and
 //     one __syncthreads_or ends the reads of Lt, publishes R and takes the
@@ -65,19 +71,23 @@ namespace {
 using namespace bp;
 
 // One codeword a block. A thread owns CPT checks of one base row: lifted
-// indices z' and, for CPT = 2, z' + Z / 2 (Z a power of two, so that
-// check's variables are the first one's with the bit Z / 2 flipped). CPT = 1
-// takes dv * Z threads (256 at n = 512), CPT = 2 half as many (512 at n =
-// 2048). The bounds keep nvcc at <= 64 registers a thread, and for CPT = 2
-// let two codewords share an SM.
+// indices z' and, for CPT = 2, z' + Z / 2. CPT = 1 takes dv * Z threads
+// (256 at n = 512), CPT = 2 half as many (512 at n = 2048, 768 and 1,024 at
+// n = 3,072 and 4,096). The bound keeps nvcc at <= 64 registers a thread,
+// so that two blocks of 512 share an SM.
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxZ = 2 * kMaxThreads / kDv;  // 512: two checks a thread
 
-// Checks a thread owns at lifting size Z: 2 where dv * Z threads would fill
-// a block of 1,024 and hold an SM alone, so two codewords share it (the
-// sum-product check pass keeps the SFU busy, the variable pass and the
-// barriers do not, and a second codeword fills those gaps), else 1.
+// Checks a thread owns at lifting size Z, 0 where the kernel takes no such
+// code: 2 where dv * Z threads would fill a block of 1,024 and hold an SM
+// alone, so two codewords share it (the sum-product check pass keeps the
+// SFU busy, the variable pass and the barriers do not, and a second
+// codeword fills those gaps), or exceed it (Z up to 512); Z even there.
+// Else 1.
 __host__ __device__ constexpr int checks_per_thread(int Z) {
-  return (kDv * Z >= kMaxThreads && (Z & (Z - 1)) == 0) ? 2 : 1;
+  return (Z <= 0 || Z > kMaxZ || (kDv * Z >= kMaxThreads && Z % 2 != 0)) ? 0
+         : kDv * Z >= kMaxThreads                                       ? 2
+                                                                        : 1;
 }
 
 // Switches of the attribution builds (tools/bench_bp_torch.py; a mask, the
@@ -90,8 +100,8 @@ enum Diag {
   kDiagNoVarUpdate = 8,   // the posteriors stay the channel LLRs
 };
 
-template <int DC, int DV, int CPT, int DIAG>
-__global__ void __launch_bounds__(kMaxThreads / CPT, CPT) bp_flooding_kernel(
+template <int DC, int DV, int CPT, bool FLIP, int DIAG>
+__global__ void __launch_bounds__(kMaxThreads) bp_flooding_kernel(
     const float* __restrict__ llr,       // (B, n) pipeline order
     const int* __restrict__ inv_perm,    // (n,) pipeline position of natural v
     const int* __restrict__ shifts,      // (DV, DC) circulant shifts
@@ -116,13 +126,23 @@ __global__ void __launch_bounds__(kMaxThreads / CPT, CPT) bp_flooding_kernel(
 
   // byte offset in an (n,) array of variable j of the first check: column
   // block j, lifted index (z' - s[i][j]) mod Z; the second check's is this
-  // one with the bit of Z / 2 flipped (flip below)
+  // one with the bit of Z / 2 flipped (FLIP: Z a power of two) or plus Z / 2
+  // where that stays in the column block (bit j of wrap clear), else minus
+  // Z / 2 (second below)
   int off[DC];
+  unsigned wrap = 0;
 #pragma unroll
   for (int j = 0; j < DC; ++j) {
     int z = (zc - shifts[row * DC + j]) % Z;
-    off[j] = 4 * (j * Z + (z < 0 ? z + Z : z));
+    z = z < 0 ? z + Z : z;
+    off[j] = 4 * (j * Z + z);
+    if (!FLIP) wrap |= (z >= Z / 2 ? 1u : 0u) << j;
   }
+  const int half = 2 * Z;  // bytes of Z / 2 floats
+  auto second = [&](int j) {
+    return FLIP ? off[j] ^ half
+                : off[j] + (((wrap >> j) & 1u) ? -half : half);
+  };
   const float* lb = llr + (size_t)b * n;
   for (int v = tid; v < n; v += nthr) {
     float x = lb[inv_perm[v]];
@@ -154,16 +174,17 @@ __global__ void __launch_bounds__(kMaxThreads / CPT, CPT) bp_flooding_kernel(
       // of two blocks an SM and spill (44 B a thread, ptxas)
 #pragma unroll
       for (int j = 0; j < DC; ++j) asm volatile("" : "+r"(off[j]));
+      if constexpr (!FLIP) asm volatile("" : "+r"(wrap));
     }
     int par = 0;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
-      const int flip = c * 2 * Z;  // bytes: the bit of Z / 2 in an index
       float lt[DC];
       int pc = 0;
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
-        lt[j] = *reinterpret_cast<const float*>(LtB + (off[j] ^ flip));
+        lt[j] = *reinterpret_cast<const float*>(
+            LtB + (c == 0 ? off[j] : second(j)));
         pc ^= (lt[j] < 0.0f) ? 1 : 0;
       }
       par |= pc;
@@ -179,7 +200,8 @@ __global__ void __launch_bounds__(kMaxThreads / CPT, CPT) bp_flooding_kernel(
         }
 #pragma unroll
         for (int j = 0; j < DC; ++j)
-          *reinterpret_cast<float*>(RrowB + (off[j] ^ flip)) = r[c][j];
+          *reinterpret_cast<float*>(RrowB + (c == 0 ? off[j] : second(j))) =
+              r[c][j];
       }
     }
     int bad;
@@ -210,7 +232,7 @@ __global__ void __launch_bounds__(kMaxThreads / CPT, CPT) bp_flooding_kernel(
                err, iters, conv);
 }
 
-template <int DC, int DV, int CPT, int DIAG>
+template <int DC, int DV, int CPT, bool FLIP, int DIAG>
 int launch_cpt(const float* llr, const int* inv_perm, const int* shifts,
                const int8_t* truth, const int* info_cols, int8_t* bits,
                int* err, int* iters, uint8_t* conv, int B, int Z, int k,
@@ -220,30 +242,35 @@ int launch_cpt(const float* llr, const int* inv_perm, const int* shifts,
   const size_t smem = sizeof(float) * (size_t)(2 + DV) * DC * Z;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        bp_flooding_kernel<DC, DV, CPT, DIAG>,
+        bp_flooding_kernel<DC, DV, CPT, FLIP, DIAG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  bp_flooding_kernel<DC, DV, CPT, DIAG><<<B, threads, smem, stream>>>(
+  bp_flooding_kernel<DC, DV, CPT, FLIP, DIAG><<<B, threads, smem, stream>>>(
       llr, inv_perm, shifts, truth, info_cols, bits, err, iters, conv, Z, k,
       cap, algo, scale, offset);
   return (int)cudaGetLastError();
 }
 
+// The attribution builds take the FLIP offsets only (at CPT = 2 the mask's
+// spill 28 B in one of them).
 template <int DC, int DV, int DIAG>
 int launch(const float* llr, const int* inv_perm, const int* shifts,
            const int8_t* truth, const int* info_cols, int8_t* bits, int* err,
            int* iters, uint8_t* conv, int B, int Z, int k, int cap,
            int algo, float scale, float offset, cudaStream_t stream) {
   if (B <= 0) return 0;
-  if (DV * Z > kMaxThreads || Z <= 0) return (int)cudaErrorInvalidValue;
-  if (checks_per_thread(Z) == 2)
-    return launch_cpt<DC, DV, 2, DIAG>(llr, inv_perm, shifts, truth,
-                                       info_cols, bits, err, iters, conv, B,
-                                       Z, k, cap, algo, scale, offset, stream);
-  return launch_cpt<DC, DV, 1, DIAG>(llr, inv_perm, shifts, truth, info_cols,
-                                     bits, err, iters, conv, B, Z, k, cap,
-                                     algo, scale, offset, stream);
+  const int cpt = checks_per_thread(Z);
+  if (cpt == 0) return (int)cudaErrorInvalidValue;
+#define BP_CPT(CPT, FLIP)                                                   \
+  launch_cpt<DC, DV, CPT, FLIP, DIAG>(llr, inv_perm, shifts, truth,         \
+                                      info_cols, bits, err, iters, conv, B, \
+                                      Z, k, cap, algo, scale, offset, stream)
+  if (cpt == 1) return BP_CPT(1, true);
+  if ((Z & (Z - 1)) == 0) return BP_CPT(2, true);
+  if constexpr (DIAG != 0) return (int)cudaErrorInvalidValue;
+  else return BP_CPT(2, false);
+#undef BP_CPT
 }
 
 // The sum-product rule's two functions elementwise (chip_smoke.py [K1 rule]
@@ -257,6 +284,12 @@ __global__ void bp_sumprod_rule_kernel(const float* __restrict__ x,
 }
 
 }  // namespace
+
+// Checks a thread of the flooding kernel owns at lifting size Z, 0 where it
+// takes no such code (ldpc/decode_cuda.py:bp_plan mirrors it).
+extern "C" int bp_decode_checks_per_thread(int Z) {
+  return checks_per_thread(Z);
+}
 
 extern "C" int bp_sumprod_rule_launch(const float* x, float* y, int n,
                                       int which, void* stream) {

@@ -26,8 +26,8 @@
 // follow one another. The flooding kernel's map (one thread per lifted check
 // (i, z'), dv*Z threads) would leave dv-1 of every dv threads idle inside a
 // layer. Here a block is one codeword and has Z threads (64 at n = 512, 256
-// at n = 2048); thread z' owns check z' of EVERY base row and walks the dv
-// rows in turn:
+// at n = 2048, 384 and 512 at n = 3,072 and 4,096); thread z' owns check z'
+// of EVERY base row and walks the dv rows in turn:
 //   * its dv*dc = 32 check->var messages stay in registers for all sweeps
 //     (loops over rows and edges are unrolled, DV and DC are template
 //     arguments); the only shared memory is the posterior Lt (n f32: 2 KB or
@@ -50,7 +50,9 @@ namespace {
 
 using namespace bp;
 
-constexpr int kMaxThreads = 256;  // Z <= 256 (n = 2048)
+// Z threads a block, up to Z = 512 (n = 4,096): at most 128 registers a
+// thread.
+constexpr int kMaxThreads = 512;
 
 template <int DV, int DC>
 __global__ void __launch_bounds__(kMaxThreads) bp_layered_kernel(
@@ -131,7 +133,7 @@ extern "C" int bp_decode_layered_launch(
   if (B <= 0) return 0;
   if (Z <= 0 || Z > kMaxThreads || dv != kDv || dc != kDc)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)kDc * Z;
+  const size_t smem = sizeof(float) * (size_t)kDc * Z;  // <= 16 KB
   bp_layered_kernel<kDv, kDc>
       <<<B, Z, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
           llr, inv_perm, shifts, truth, info_cols, bits, err, iters, conv, Z,

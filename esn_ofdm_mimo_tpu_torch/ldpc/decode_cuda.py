@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,14 +47,75 @@ _DC, _DV = 8, 4  # the check and variable degrees the kernels are built for
 _SOURCES = {"flooding": "bp_decode", "layered": "bp_decode_layered"}
 
 
+# Threads a block of the flooding kernel may have, and the layered kernel's
+# (csrc/bp_decode.cu, csrc/bp_decode_layered.cu)
+_FLOOD_THREADS, _LAYERED_THREADS = 1024, 512
+
+
+class BpPlan(NamedTuple):
+    """How a BP kernel lays one codeword on a thread block."""
+    threads: int             # threads a block
+    checks_per_thread: int   # lifted checks a thread owns
+    smem_bytes: int          # dynamic shared memory of a block
+
+
+def checks_per_thread(Z: int) -> int:
+    """Lifted checks a thread of the flooding kernel owns at lifting size Z,
+    0 where it takes no such code (csrc/bp_decode.cu:checks_per_thread):
+    two where dv * Z threads would fill a block of 1,024 or exceed it (Z
+    even, up to 512), else one."""
+    if Z <= 0 or 2 * _FLOOD_THREADS < _DV * Z or (
+            _DV * Z >= _FLOOD_THREADS and Z % 2):
+        return 0
+    return 2 if _DV * Z >= _FLOOD_THREADS else 1
+
+
+def bp_plan(Z: int, schedule: str = "flooding") -> BpPlan:
+    """The launch of a codeword of lifting size Z (n = dc * Z), as the
+    kernels take it; raises where their threads cannot hold the code.
+    Flooding: dv * Z / `checks_per_thread(Z)` threads, shared memory
+    (2 + dv) * n floats, 98 KB at Z = 512. Layered: Z threads, each owning
+    check z' of all dv base rows, up to 512; shared memory n floats."""
+    n = _DC * Z
+    if schedule == "layered":
+        if not 0 < Z <= _LAYERED_THREADS:
+            raise ValueError(f"the layered BP kernel takes Z <= "
+                             f"{_LAYERED_THREADS} (one thread a lifted "
+                             f"index); got Z={Z}")
+        return BpPlan(Z, _DV, 4 * n)
+    cpt = checks_per_thread(Z)
+    if cpt == 0:
+        raise ValueError(f"the flooding BP kernel takes dv * Z <= "
+                         f"{2 * _FLOOD_THREADS} checks in a block of "
+                         f"{_FLOOD_THREADS} threads, two a thread from "
+                         f"{_FLOOD_THREADS} on (Z even); got Z={Z}")
+    return BpPlan(_DV * Z // cpt, cpt, 4 * (2 + _DV) * n)
+
+
 # argument types of the two decoders' launchers (csrc/*.cu), less the stream
 _DECODE_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
                 + (ctypes.c_float, ctypes.c_float))
 
 
 @functools.lru_cache(maxsize=None)
+def _lib(source: str):
+    """The built library; for the flooding kernel, checked once against
+    `checks_per_thread`, which `bp_plan` reports."""
+    lib = build.load(source)
+    if source == "bp_decode":
+        fn = lib.bp_decode_checks_per_thread
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        bad = [Z for Z in range(-1, 2 * _FLOOD_THREADS // _DV + 2)
+               if fn(Z) != checks_per_thread(Z)]
+        if bad:
+            raise RuntimeError(f"checks_per_thread differs from the built "
+                               f"flooding kernel's at Z = {bad[:8]}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _fn(source: str, symbol: str, argtypes: tuple):
-    fn = getattr(build.load(source), symbol)
+    fn = getattr(_lib(source), symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -83,10 +145,14 @@ def _launch(code: LdpcCode, llr: torch.Tensor, truth, cap: int, algo: str,
     if llr.dtype != torch.float32 or llr.dim() != 2 or llr.shape[1] != code.n:
         raise ValueError(f"llr must be float32 (B, {code.n}); got "
                          f"{tuple(llr.shape)} {llr.dtype}")
-    if code.dc != _DC or code.dv != _DV or code.qc.Z > 256:
-        raise ValueError(f"the BP kernels take dc = {_DC}, dv = {_DV} and "
-                         f"Z <= 256; got dc={code.dc}, dv={code.dv}, "
-                         f"Z={code.qc.Z}")
+    if code.dc != _DC or code.dv != _DV:
+        raise ValueError(f"the BP kernels take dc = {_DC} and dv = {_DV}; "
+                         f"got dc={code.dc}, dv={code.dv}")
+    plan = bp_plan(code.qc.Z, schedule)  # raises where it cannot launch
+    Z = code.qc.Z
+    if diag and plan.checks_per_thread == 2 and Z & (Z - 1):
+        raise ValueError(f"the attribution builds take two checks a thread "
+                         f"only where Z is a power of two; got Z={Z}")
     llr = llr.contiguous()
     dev = llr.device
     B = llr.shape[0]

@@ -4,7 +4,8 @@ the attribution builds of the flooding kernel: the port of
 tools/bench_bp_itercost.py.
 
     python3 tools/bench_bp_torch.py [--ptxas] [--reps N] [--lo L] [--hi H]
-                                    [--batch B] [--device D]
+                                    [--batch B] [--device D] [--no-diag]
+                                    [--wide]
 
 For each code the presets decode with (mimo_4x8_cdl: n = 512, 75,776
 codewords; mimo_4x8_nbf: n = 2048, 12,800 codewords: the batches
@@ -14,7 +15,9 @@ each decode at the caps L and H (CUDA events, one warm-up, N launches) and
 prints the marginal ms per iteration (t_H - t_L) / (H - L), in which the
 launch, the LLR load and the result write cancel; for the three check
 rules and both schedules (an iteration of the layered schedule is one sweep
-over the dv base rows).
+over the dv base rows). --wide adds the codes of mimo_4x8_nbf at 64- and
+256-QAM (n = 3,072 and 4,096, Z = 384 and 512; 2,048 codewords each, as
+chip_smoke.py's [K1 Z384/Z512] lines), without attribution builds.
 
 Then the attribution builds of the flooding kernel
 (ldpc/decode_cuda.py:DIAG_BUILDS; compile-time switches of csrc/bp_decode.cu,
@@ -23,7 +26,8 @@ the same way: the kernel at a fixed iteration count without the exit vote
 ("fixed"), then with the check rule a copy of its inputs, the syndrome
 removed, the variable update removed, and all three ("floor"). "fixed"
 minus each build is what that part costs an iteration; the floor is the
-barriers and the shared-memory reads and writes that remain.
+barriers and the shared-memory reads and writes that remain. --no-diag
+leaves them out.
 
 --ptxas first compiles both BP sources with -Xptxas -v and prints the
 registers and spill bytes of every kernel in them (template arguments: DC,
@@ -112,6 +116,10 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=None,
                     help="codewords a code (default: chip_smoke.py's)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-diag", action="store_true",
+                    help="leave out the attribution builds")
+    ap.add_argument("--wide", action="store_true",
+                    help="add the n = 3,072 and 4,096 codes")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     on_card = dev.type == "cuda"
@@ -156,9 +164,12 @@ def main(argv=None) -> int:
               f"edge-iteration (card-wide)", flush=True)
         return per
 
-    for cfg, B in ((mimo_4x8_cdl(), 75_776), (mimo_4x8_nbf(), 12_800)):
-        code = make_code(cfg.ldpc,
-                         cfg.ofdm.n_subcarriers * cfg.ofdm.bits_per_symbol)
+    nbf = mimo_4x8_nbf()
+    codes = [(mimo_4x8_cdl(), 4, 75_776, True), (nbf, 4, 12_800, True)]
+    if args.wide:
+        codes += [(nbf, 6, 2_048, False), (nbf, 8, 2_048, False)]
+    for cfg, bits, B, diag in codes:
+        code = make_code(cfg.ldpc, cfg.ofdm.n_subcarriers * bits)
         llr = awgn_llrs(code, args.batch or B, dev)
         kw = dict(minsum_offset=cfg.ldpc.minsum_offset)
         for schedule in ("flooding", "layered"):
@@ -167,7 +178,7 @@ def main(argv=None) -> int:
                          lambda c, s=schedule, a=algo:
                          decode_cuda.ldpc_decode_bp_cuda(
                              code, llr, c, a, schedule=s, **kw)[1])
-        for algo in ALGOS:
+        for algo in ALGOS if diag and not args.no_diag else ():
             per = {d: marginal(
                 f"diag {DIAG_NAMES[d]} {algo}", code, llr,
                 lambda c, d=d, a=algo: decode_cuda.ldpc_decode_bp_diag(
