@@ -25,7 +25,9 @@ nvcc per source, all started together; sm_90a), then:
      codes of the NBF presets at 64- and 256-QAM (n = 3,072 and 4,096), 2,048
      codewords at Eb/N0 1.0 and 1.5 dB: both min-sum rules identical to the
      plain version, sum-product in the band, each line with the launch plan
-     (threads, checks a thread, shared memory), ms and bound;
+     (flooding: threads, checks a thread, shared memory; layered: threads,
+     codewords a block, shared memory, the build's registers and resident
+     blocks an SM), ms and bound;
   3. K2, the ESN predict recurrence (csrc/esn_predict.cu), against its plain
      version at the flagship detect shape (9,472 rows, T = 138, n_res = 300,
      128 readouts of 74 rows): noise 0 within atol 1e-4 / rtol 1e-3, noise
@@ -52,8 +54,8 @@ nvcc per source, all started together; sm_90a), then:
      [K1-layered] the row-layered BP decoder (csrc/bp_decode_layered.cu)
      against plain layered BP on the same codewords as K1 (cap 50) and
      K1-nbf (caps 50 and 100): identical for both min-sum rules,
-     sum-product (the NBF preset's rule) in the band; then layered at cap
-     50 against flooding at
+     sum-product (the NBF preset's rule) in the band, each line with the
+     launch plan as above; then layered at cap 50 against flooding at
      cap 100 (BER, unconverged share, ms per sweep);
      [K5] every ablation build of the predict recurrence
      (csrc/esn_predict_ablate.cu) against its plain version at the
@@ -383,6 +385,16 @@ def main() -> None:
         return (llr.numel() * 4 + u.numel() + llr.shape[0] * (4 + 4 + 1),
                 13.0 * edge_its, 2.0 * edge_its if algo == "sumprod" else 0.0)
 
+    def layered_plan_str(Z: int, algo: str) -> str:
+        """The layered kernel's launch at lifting size Z: bp_plan's threads,
+        codewords and shared memory, the build's registers and the
+        resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+        p = decode_cuda.bp_plan(Z, "layered")
+        regs, blocks = decode_cuda.layered_occupancy(Z, algo)
+        return (f"{p.threads} threads, {p.codewords} codeword a block, "
+                f"{p.smem_bytes} B shared, {regs} registers, {blocks} blocks "
+                f"an SM")
+
     code = make_code(cfg.ldpc,
                      cfg.ofdm.n_subcarriers * cfg.ofdm.bits_per_symbol)
     u, llr = awgn_codewords(code, 37_888, (1.5, 2.5))  # one flagship batch
@@ -485,11 +497,13 @@ def main() -> None:
                     lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
                         code_w, llr_w, u_w, **kw_w), 2)
                 b_w, by_w = _bound(*k1_work(code_w, llr_w, u_w, it_w, algo))
+                plan_s = (layered_plan_str(Zw, algo) if sched == "layered"
+                          else f"{plan_w.threads} threads, "
+                               f"{plan_w.checks_per_thread} checks a thread, "
+                               f"{plan_w.smem_bytes} B shared")
                 _log(f"[{tag} Z{Zw}] {algo}, {llr_w.shape[0]} codewords of "
                      f"n = {code_w.n} at Eb/N0 1.0/1.5 dB, cap {cap_w} "
-                     f"({plan_w.threads} threads, {plan_w.checks_per_thread}"
-                     f" checks a thread, {plan_w.smem_bytes} B shared): "
-                     f"{same} | mean iterations "
+                     f"({plan_s}): {same} | mean iterations "
                      f"{it_w / llr_w.shape[0]:.3f} converged {conv_w:.4f} | "
                      f"kernel {ms_w:.3f} ms bound {b_w:.4f} ms ({by_w})")
     del u_w, llr_w
@@ -782,7 +796,8 @@ def main() -> None:
         0.0, k1l_ms, k1l_plain_ms,
         *k1_work(code, llr, u, itl_sum, kw_l["algo"]))
     _log(f"[K1-layered offset-minsum] {llr.shape[0]} codewords at Eb/N0 "
-         f"1.5/2.5 dB, cap 50: bits, iterations, converged, counts identical "
+         f"1.5/2.5 dB, cap 50 ({layered_plan_str(code.qc.Z, kw_l['algo'])}):"
+         f" bits, iterations, converged, counts identical "
          f"| mean sweeps {itl_sum / llr.shape[0]:.3f} converged "
          f"{convl_frac:.4f} | kernel {k1l_ms:.3f} ms plain "
          f"{k1l_plain_ms:.3f} ms bound "
@@ -799,8 +814,9 @@ def main() -> None:
             k1ln_bound, k1ln_by = _bound(*k1_work(code_n, llr_n, u_n, itn_l,
                                                   algo))
             _log(f"[K1-layered nbf cap {cap_l}] {algo}, {llr_n.shape[0]} "
-                 f"codewords of n = {code_n.n}: bits, iterations, converged, "
-                 f"counts identical | mean sweeps "
+                 f"codewords of n = {code_n.n} "
+                 f"({layered_plan_str(code_n.qc.Z, algo)}): bits, "
+                 f"iterations, converged, counts identical | mean sweeps "
                  f"{itn_l / llr_n.shape[0]:.3f} converged {convn_l:.4f} | "
                  f"kernel {k1ln_ms:.3f} ms bound {k1ln_bound:.4f} ms "
                  f"({k1ln_by})")
@@ -820,7 +836,9 @@ def main() -> None:
     k1ls_bound, k1ls_by = _bound(*k1_work(
         code_n, llr_n, u_n, int(sk["iterations"].long().sum()),
         kwn_s["algo"]))
-    _log(f"[K1-layered nbf cap 100] {kwn_s['algo']}: bit agreement {agree} "
+    _log(f"[K1-layered nbf cap 100] {kwn_s['algo']} "
+         f"({layered_plan_str(code_n.qc.Z, kwn_s['algo'])}): bit agreement "
+         f"{agree} "
          f"iterations {it_agree} converged {cv_agree} | mean sweeps "
          f"{float(sk['iterations'].float().mean()):.3f} converged "
          f"{float(sk['converged'].float().mean()):.4f} | kernel "

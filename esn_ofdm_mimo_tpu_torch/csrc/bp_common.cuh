@@ -78,32 +78,49 @@ __device__ __forceinline__ float log_ratio(float p) {
   return fabsf(p) < 0.0625f ? poly : big;
 }
 
+// The sum-product rule on one check: r[j] = 2 atanh(prod_{k != j} t[k]),
+// t = tanh(clip(q) / 2), the leave-one-out products from a forward and a
+// backward running product, clipped to +-0.9999999 (CLIP_P; that clip
+// never binds: |t| <= 1 - 3 * 2^-24 at |q| >= 16, below the clip's
+// 1 - 2^-23, and a product of such factors is no larger than its largest,
+// so the layered kernel leaves it out: 2 instructions an edge).
+template <int DC, bool CLIP_P = true>
+__device__ __forceinline__ void sumprod_rule(const float (&q)[DC],
+                                             float (&r)[DC]) {
+  float t[DC];
+#pragma unroll
+  for (int j = 0; j < DC; ++j) t[j] = tanh_half(q[j]);
+  float fwd[DC];
+  fwd[0] = 1.0f;
+#pragma unroll
+  for (int j = 1; j < DC; ++j) fwd[j] = fwd[j - 1] * t[j - 1];
+  float bwd = 1.0f;
+#pragma unroll
+  for (int j = DC - 1; j >= 0; --j) {
+    float p = fwd[j] * bwd;
+    if (CLIP_P) p = fminf(fmaxf(p, -kSpClip), kSpClip);
+    r[j] = log_ratio(p);
+    bwd = bwd * t[j];
+  }
+}
+
 // Check->var messages r[j] from the var->check messages q[j] of one check,
 // leave-one-out. The rules see the messages clipped to +-16, and take of
 // them only min(|q|, 16) and the sign of q, which are clip(q)'s magnitude
 // and sign: one FMNMX an edge where a two-sided clip and an abs would take
 // three. Min-sum keeps an online (min, second min, first argmin); compiled
 // with --fmad=false both min-sum rules reproduce the plain version's floats
-// exactly.
+// exactly. (The layered kernel has its own min-sum form,
+// bp_decode_layered.cu:minsum_rule.)
 template <int DC>
 __device__ __forceinline__ void check_update(const float (&q)[DC],
                                              float (&r)[DC], int algo,
                                              float scale, float offset) {
+#ifdef BP_SASS_ALGO
+  algo = BP_SASS_ALGO;  // one rule's code only (tools/bench_bp_torch.py)
+#endif
   if (algo == kSumProd) {
-    float t[DC];
-#pragma unroll
-    for (int j = 0; j < DC; ++j) t[j] = tanh_half(q[j]);
-    float fwd[DC];
-    fwd[0] = 1.0f;
-#pragma unroll
-    for (int j = 1; j < DC; ++j) fwd[j] = fwd[j - 1] * t[j - 1];
-    float bwd = 1.0f;
-#pragma unroll
-    for (int j = DC - 1; j >= 0; --j) {
-      float p = fminf(fmaxf(fwd[j] * bwd, -kSpClip), kSpClip);
-      r[j] = log_ratio(p);
-      bwd = bwd * t[j];
-    }
+    sumprod_rule<DC>(q, r);
   } else {
     float sprod = 1.0f;
     float m1 = fminf(fabsf(q[0]), kMsgClip);

@@ -44,8 +44,10 @@ MSG_CLIP = 16.0
 _SP_CLIP = 0.9999999
 ALGOS = ("sumprod", "minsum", "offset-minsum")
 SCHEDULES = ("flooding", "layered")
-# Switches of the flooding kernel's attribution builds (csrc/bp_decode.cu,
-# launched only by tools/bench_bp_torch.py): a mask, 0 in every decode.
+# Switches of the BP kernels' attribution builds (csrc/bp_decode.cu,
+# csrc/bp_decode_layered.cu; launched only by tools/bench_bp_torch.py): a
+# mask, 0 in every decode. In the layered kernel DIAG_NO_VAR_UPDATE drops the
+# posterior write.
 DIAG_FIXED, DIAG_COPY_RULE, DIAG_NO_SYNDROME, DIAG_NO_VAR_UPDATE = 1, 2, 4, 8
 
 
@@ -128,6 +130,55 @@ def _check_update(q: torch.Tensor, algo: str, minsum_scale: float,
     return minsum_scale * sgn_loo * loo
 
 
+_SIGN = -2 ** 31  # the sign bit of an int32 view of a float32
+
+
+def minsum_form(q: torch.Tensor, algo: str, minsum_scale: float,
+                minsum_offset: float) -> torch.Tensor:
+    """The min-sum rules in the form the layered kernel computes them
+    (csrc/bp_decode_layered.cu:minsum_rule), on float32 q (..., 8): the
+    same floats as `_check_update(clamp(q, +-16), ...)`, bit for bit.
+    Nothing on the decode path calls it; tests/test_torch_bp_layered_form.py
+    holds it against `_check_update` and, through
+    `_decode_layered(..., kernel_form=True)`, the decoder against the JAX
+    package.
+
+    Sign bits stand for `q < 0`: q + 0.0 turns -0.0 into +0.0 (the kernel
+    does it once, to the channel LLRs it loads, and its sums then hold no
+    -0.0). The check's sign is the XOR of the dc sign bits; m1 <= m2, the
+    two smallest of a = min(|q|, 16), come from a tree of pairs; the rule's
+    magnitude is computed for m1 and m2 only, edge j taking f(m2) where
+    a == m1 (the first argmin; where several tie, m2 == m1) and f(m1)
+    elsewhere; the signs are XORed onto it."""
+    if q.shape[-1] != 8:
+        raise ValueError(f"the kernel's tree of pairs takes dc = 8, got "
+                         f"{q.shape[-1]}")
+    qi = (q.to(torch.float32) + 0.0).view(torch.int32)
+    a = torch.clamp_max(q.abs(), MSG_CLIP)
+    par = qi[..., 0]
+    for j in range(1, 8):
+        par = par ^ qi[..., j]
+    lo = torch.minimum(a[..., 0::2], a[..., 1::2])              # (..., 4)
+    hi = torch.maximum(a[..., 0::2], a[..., 1::2])
+    for _ in range(2):                        # merge neighbouring pairs
+        lo_a, lo_b = lo[..., 0::2], lo[..., 1::2]
+        hi_a, hi_b = hi[..., 0::2], hi[..., 1::2]
+        hi = torch.minimum(torch.maximum(lo_a, lo_b),
+                           torch.minimum(hi_a, hi_b))
+        lo = torch.minimum(lo_a, lo_b)
+    m1, m2 = lo, hi                                             # (..., 1)
+    if algo == "offset-minsum":
+        f1 = torch.clamp_min(m1 - minsum_offset, 0.0)
+        f2 = torch.clamp_min(m2 - minsum_offset, 0.0)
+    elif algo == "minsum":
+        f1, f2 = minsum_scale * m1, minsum_scale * m2
+    else:
+        raise ValueError(f"minsum_form takes the min-sum rules, got {algo!r}")
+    sgn = (par & _SIGN)[..., None]
+    s1, s2 = f1.view(torch.int32) ^ sgn, f2.view(torch.int32) ^ sgn
+    return (torch.where(a == m1, s2, s1) ^ (qi & _SIGN)).view(torch.float32)
+
+
 def _decode_flooding(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
                      algo: str, minsum_scale: float, minsum_offset: float,
                      diag: int = 0):
@@ -188,12 +239,24 @@ def _decode_flooding(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
 
 
 def _decode_layered(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
-                    algo: str, minsum_scale: float, minsum_offset: float):
+                    algo: str, minsum_scale: float, minsum_offset: float,
+                    diag: int = 0, kernel_form: bool = False):
     """Row-layered BP in natural order (the JAX _decode_bp_qc_layered).
     Base row i touches every variable once and its check (i, z') sees
     variable (j, z) iff z' == (z + shifts[i, j]) % Z, so a layer is dc rolls
     each way over the lifted index, no gathers. Same interface and stats as
-    _decode_flooding; an iteration is one sweep over the dv layers."""
+    _decode_flooding; an iteration is one sweep over the dv layers.
+
+    `diag` selects the plain version of one of the layered kernel's
+    attribution builds, as in _decode_flooding: DIAG_FIXED never exits,
+    DIAG_COPY_RULE makes the check rule return its clipped inputs,
+    DIAG_NO_VAR_UPDATE drops the posterior write (Lt stays the channel
+    LLRs, the messages still update) and DIAG_NO_SYNDROME only removes
+    work.
+
+    kernel_form=True takes the min-sum rules in the kernel's form
+    (`minsum_form`) and loads the channel LLRs as llr + 0.0, as the kernel
+    does; the bits and stats are the same (tests only)."""
     qc = code.qc
     Z, dv, dc = int(qc.Z), int(code.dv), int(code.dc)
     shifts = [[int(s) for s in row] for row in np.asarray(qc.shifts)]
@@ -202,6 +265,8 @@ def _decode_layered(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
     def syndrome_ok(lt):
         d = (lt < 0).to(torch.int32)                          # (b, dc, Z)
         ok = torch.ones(lt.shape[0], dtype=torch.bool, device=lt.device)
+        if diag & DIAG_FIXED:
+            return ~ok
         for i in range(dv):
             acc = sum(torch.roll(d[:, j], shifts[i][j], -1)
                       for j in range(dc))
@@ -217,14 +282,22 @@ def _decode_layered(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
             qc_ = torch.clamp(q, -MSG_CLIP, MSG_CLIP)
             t = torch.stack([torch.roll(qc_[:, j], shifts[i][j], -1)
                              for j in range(dc)], dim=-1)      # (b, Z, dc)
-            rc = _check_update(t, algo, minsum_scale, minsum_offset)
+            if diag & DIAG_COPY_RULE:
+                rc = t
+            elif kernel_form and algo != "sumprod":
+                rc = minsum_form(t, algo, minsum_scale, minsum_offset)
+            else:
+                rc = _check_update(t, algo, minsum_scale, minsum_offset)
             r_new = torch.stack([torch.roll(rc[..., j], -shifts[i][j], -1)
                                  for j in range(dc)], dim=1)   # (b, dc, Z)
-            lt = q + r_new
+            if not diag & DIAG_NO_VAR_UPDATE:
+                lt = q + r_new
             r[:, i] = r_new
         return r, lt
 
     lc = llr_nat.to(torch.float32).reshape(B, dc, Z)
+    if kernel_form:
+        lc = lc + 0.0
     bits = (lc < 0).reshape(B, -1)
     done = syndrome_ok(lc)
     iters = torch.where(done, 0, cap).to(torch.int32)

@@ -1,7 +1,7 @@
 """Wrapper of the CUDA BP decoders: flooding (csrc/bp_decode.cu) and
-row-layered (csrc/bp_decode_layered.cu); beside them the flooding kernel's
+row-layered (csrc/bp_decode_layered.cu); beside them both kernels'
 attribution builds (`ldpc_decode_bp_diag`, for tools/bench_bp_torch.py) and
-its sum-product check rule on its own (`sumprod_rule`, for chip_smoke.py).
+the sum-product check rule on its own (`sumprod_rule`, for chip_smoke.py).
 
 Counterpart of esn_ofdm_mimo_tpu/ldpc/decode_pallas.py. For a CUDA tensor
 the wrapper launches the kernel of the schedule (one codeword per thread
@@ -25,8 +25,8 @@ import torch
 from ..utils import build
 from .code import LdpcCode
 from .decode import (ALGOS, _check_args, _decode_flooding,
-                     _effective_cap, ldpc_decode_bp_plain, log_ratio,
-                     tanh_half)
+                     _decode_layered, _effective_cap, ldpc_decode_bp_plain,
+                     log_ratio, tanh_half)
 
 # Launches of the flooding and of the layered kernel since the counts were
 # last reset (by the caller); of the attribution builds and of the check
@@ -36,10 +36,10 @@ launches_layered = 0
 launches_diag = 0
 launches_rule = 0
 
-# The attribution builds of csrc/bp_decode.cu (masks of decode.DIAG_*;
-# each holds DIAG_FIXED): the kernel at a fixed iteration count, then the
-# check rule a copy of its inputs, the syndrome removed, the variable update
-# removed, and all three.
+# The attribution builds of both BP kernels (masks of decode.DIAG_*; each
+# holds DIAG_FIXED): the kernel at a fixed iteration count, then the check
+# rule a copy of its inputs, the syndrome removed, the variable update (in
+# the layered kernel: the posterior write) removed, and all three.
 DIAG_BUILDS = (1, 3, 5, 9, 15)
 
 _ALGO_ID = {a: i for i, a in enumerate(ALGOS)}
@@ -50,13 +50,18 @@ _SOURCES = {"flooding": "bp_decode", "layered": "bp_decode_layered"}
 # Threads a block of the flooding kernel may have, and the layered kernel's
 # (csrc/bp_decode.cu, csrc/bp_decode_layered.cu)
 _FLOOD_THREADS, _LAYERED_THREADS = 1024, 512
+# Floats of a layered thread's row of messages in shared memory: dv * dc and
+# a pad of 4 (16-byte rows 144 B apart: a float4 phase of 8 threads on
+# distinct banks)
+_MSG_ROW = _DV * _DC + 4
 
 
 class BpPlan(NamedTuple):
-    """How a BP kernel lays one codeword on a thread block."""
+    """How a BP kernel lays codewords on a thread block."""
     threads: int             # threads a block
     checks_per_thread: int   # lifted checks a thread owns
     smem_bytes: int          # dynamic shared memory of a block
+    codewords: int = 1       # codewords a block
 
 
 def checks_per_thread(Z: int) -> int:
@@ -70,19 +75,30 @@ def checks_per_thread(Z: int) -> int:
     return 2 if _DV * Z >= _FLOOD_THREADS else 1
 
 
+def layered_smem_bytes(Z: int) -> int:
+    """Dynamic shared memory of a block of the layered kernel at lifting
+    size Z, 0 where it takes no such code
+    (csrc/bp_decode_layered.cu:smem_bytes): the posteriors (dc * Z floats)
+    and each thread's row of messages (Z rows of `_MSG_ROW` floats)."""
+    if not 0 < Z <= _LAYERED_THREADS:
+        return 0
+    return 4 * (_DC + _MSG_ROW) * Z
+
+
 def bp_plan(Z: int, schedule: str = "flooding") -> BpPlan:
     """The launch of a codeword of lifting size Z (n = dc * Z), as the
-    kernels take it; raises where their threads cannot hold the code.
-    Flooding: dv * Z / `checks_per_thread(Z)` threads, shared memory
-    (2 + dv) * n floats, 98 KB at Z = 512. Layered: Z threads, each owning
-    check z' of all dv base rows, up to 512; shared memory n floats."""
+    kernels take it, one codeword a block; raises where their threads
+    cannot hold the code. Flooding: dv * Z / `checks_per_thread(Z)`
+    threads, shared memory (2 + dv) * n floats, 98 KB at Z = 512. Layered:
+    Z threads, each owning check z' of all dv base rows, up to 512; shared
+    memory `layered_smem_bytes(Z)`, 88 KB at Z = 512."""
     n = _DC * Z
     if schedule == "layered":
-        if not 0 < Z <= _LAYERED_THREADS:
+        if not layered_smem_bytes(Z):
             raise ValueError(f"the layered BP kernel takes Z <= "
                              f"{_LAYERED_THREADS} (one thread a lifted "
                              f"index); got Z={Z}")
-        return BpPlan(Z, _DV, 4 * n)
+        return BpPlan(Z, _DV, layered_smem_bytes(Z))
     cpt = checks_per_thread(Z)
     if cpt == 0:
         raise ValueError(f"the flooding BP kernel takes dv * Z <= "
@@ -99,17 +115,21 @@ _DECODE_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7
 
 @functools.lru_cache(maxsize=None)
 def _lib(source: str):
-    """The built library; for the flooding kernel, checked once against
-    `checks_per_thread`, which `bp_plan` reports."""
+    """The built library, checked once against the layout rule `bp_plan`
+    reports: `checks_per_thread` for the flooding kernel,
+    `layered_smem_bytes` for the layered one."""
     lib = build.load(source)
-    if source == "bp_decode":
-        fn = lib.bp_decode_checks_per_thread
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-        bad = [Z for Z in range(-1, 2 * _FLOOD_THREADS // _DV + 2)
-               if fn(Z) != checks_per_thread(Z)]
-        if bad:
-            raise RuntimeError(f"checks_per_thread differs from the built "
-                               f"flooding kernel's at Z = {bad[:8]}")
+    symbol, rule = {
+        "bp_decode": ("bp_decode_checks_per_thread", checks_per_thread),
+        "bp_decode_layered": ("bp_decode_layered_smem_bytes",
+                              layered_smem_bytes)}[source]
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    bad = [Z for Z in range(-1, 2 * _FLOOD_THREADS // _DV + 2)
+           if fn(Z) != rule(Z)]
+    if bad:
+        raise RuntimeError(f"{rule.__name__} differs from the built "
+                           f"{source} at Z = {bad[:8]}")
     return lib
 
 
@@ -150,7 +170,8 @@ def _launch(code: LdpcCode, llr: torch.Tensor, truth, cap: int, algo: str,
                          f"got dc={code.dc}, dv={code.dv}")
     plan = bp_plan(code.qc.Z, schedule)  # raises where it cannot launch
     Z = code.qc.Z
-    if diag and plan.checks_per_thread == 2 and Z & (Z - 1):
+    if (diag and schedule == "flooding" and plan.checks_per_thread == 2
+            and Z & (Z - 1)):
         raise ValueError(f"the attribution builds take two checks a thread "
                          f"only where Z is a power of two; got Z={Z}")
     llr = llr.contiguous()
@@ -175,7 +196,7 @@ def _launch(code: LdpcCode, llr: torch.Tensor, truth, cap: int, algo: str,
     stream = torch.cuda.current_stream(dev).cuda_stream
     name = _SOURCES[schedule]
     if diag:
-        rc = _fn(name, "bp_decode_diag_launch",
+        rc = _fn(name, f"{name}_diag_launch",
                  _DECODE_ARGS + (ctypes.c_int, ctypes.c_void_p))(
             *args, diag, stream)
     else:
@@ -232,17 +253,20 @@ def ldpc_decode_bp_cuda_counts(code: LdpcCode, llr: torch.Tensor,
 
 def ldpc_decode_bp_diag(code: LdpcCode, llr: torch.Tensor, cap: int,
                         algo: str, diag: int, minsum_scale: float = 0.75,
-                        minsum_offset: float = 0.625):
-    """One of the flooding kernel's attribution builds (`diag` in
+                        minsum_offset: float = 0.625,
+                        schedule: str = "flooding"):
+    """One of the attribution builds of the schedule's kernel (`diag` in
     DIAG_BUILDS): `cap` iterations for every codeword, results wrong by
     design, (bits (B, n) int8, stats) as ldpc_decode_bp_cuda. For a CPU
     tensor, the plain version of the same build."""
     if diag not in DIAG_BUILDS:
         raise ValueError(f"no attribution build {diag}; built: {DIAG_BUILDS}")
-    _check_args(code, algo, "flooding")
+    _check_args(code, algo, schedule)
     if llr.device.type == "cpu":
         qc = code.qc
-        bits, iters, conv = _decode_flooding(
+        decode = _decode_layered if schedule == "layered" else \
+            _decode_flooding
+        bits, iters, conv = decode(
             code, llr.to(torch.float32)[:, torch.as_tensor(qc.inv_perm)],
             int(cap), algo, minsum_scale, minsum_offset, diag)
         return (bits[:, torch.as_tensor(qc.perm)].to(torch.int8),
@@ -250,7 +274,24 @@ def ldpc_decode_bp_diag(code: LdpcCode, llr: torch.Tensor, cap: int,
     if llr.device.type != "cuda":
         raise ValueError(f"unsupported device {llr.device}")
     return _launch(code, llr, None, int(cap), algo, minsum_scale,
-                   minsum_offset, "flooding", diag)
+                   minsum_offset, schedule, diag)
+
+
+def layered_occupancy(Z: int, algo: str) -> tuple:
+    """(registers a thread, resident blocks an SM) of the layered decode
+    kernel of rule `algo` at lifting size Z, as the card reports them
+    (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at `bp_plan`'s threads and shared memory). Needs the card."""
+    bp_plan(Z, "layered")
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    ptr = ctypes.POINTER(ctypes.c_int)
+    rc = _fn("bp_decode_layered", "bp_decode_layered_occupancy",
+             (ctypes.c_int, ctypes.c_int, ptr, ptr))(
+        Z, _ALGO_ID[algo], ctypes.byref(regs), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"bp_decode_layered_occupancy failed: CUDA error "
+                           f"{rc}")
+    return regs.value, blocks.value
 
 
 def sumprod_rule(x: torch.Tensor, which: str) -> torch.Tensor:

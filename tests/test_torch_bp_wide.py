@@ -2,8 +2,10 @@
 layered decoders at the codes above Z = 256 (n = 3,072 and 4,096: the NBF
 presets at 64- and 256-QAM, `--qam-bits 6` / `8`) against the JAX decoders.
 
-  * ldpc/decode_cuda.py:bp_plan (threads, checks a thread, shared memory) at
-    Z = 64, 256, 384 and 512 for both schedules, and its refusals by name;
+  * ldpc/decode_cuda.py:bp_plan (threads, checks a thread, shared memory,
+    codewords a block) at Z = 64, 256, 384 and 512 for both schedules, the
+    layered kernel's shared-memory rule (`layered_smem_bytes`), and their
+    refusals by name;
   * plain flooding BP against the JAX XLA graph decoder and plain layered BP
     against the JAX XLA layered decoder, 16 AWGN codewords a code (Eb/N0
     1.0-2.6 dB): both min-sum rules exact (bits, iterations, converged
@@ -33,10 +35,10 @@ EBNO = np.linspace(1.0, 2.6, B)[:, None]
 
 
 @pytest.mark.parametrize("Z,flood,layered", [
-    (64, (256, 1, 12_288), (64, 4, 2_048)),          # flagship, n = 512
-    (256, (512, 2, 49_152), (256, 4, 8_192)),        # mimo_4x8_nbf, n = 2048
-    (384, (768, 2, 73_728), (384, 4, 12_288)),       # 64-QAM NBF, n = 3,072
-    (512, (1024, 2, 98_304), (512, 4, 16_384)),      # 256-QAM NBF, n = 4,096
+    (64, (256, 1, 12_288, 1), (64, 4, 11_264, 1)),      # flagship, n = 512
+    (256, (512, 2, 49_152, 1), (256, 4, 45_056, 1)),    # mimo_4x8_nbf, 2048
+    (384, (768, 2, 73_728, 1), (384, 4, 67_584, 1)),    # 64-QAM NBF, 3,072
+    (512, (1024, 2, 98_304, 1), (512, 4, 90_112, 1)),   # 256-QAM NBF, 4,096
 ])
 def test_bp_plan(Z, flood, layered):
     assert tuple(decode_cuda.bp_plan(Z)) == flood
@@ -51,6 +53,31 @@ def test_bp_plan(Z, flood, layered):
 def test_bp_plan_refuses_by_name(Z, schedule):
     with pytest.raises(ValueError, match=f"{schedule} BP kernel"):
         decode_cuda.bp_plan(Z, schedule)
+
+
+@pytest.mark.parametrize("Z", [64, 256, 384, 512])
+def test_layered_layout_rule(Z):
+    """The layered kernel's shared memory: the posteriors (dc * Z floats)
+    and one padded row of dv * dc messages a thread, rows 16-byte aligned
+    and 144 B apart, so that the 8 threads of a float4 phase fall on 8
+    distinct 16-byte bank groups; the whole within a block's 227 KB."""
+    smem = decode_cuda.layered_smem_bytes(Z)
+    n = 8 * Z
+    assert smem == 4 * n + 4 * Z * (4 * 8 + 4) == 176 * Z
+    assert decode_cuda.bp_plan(Z, "layered").smem_bytes == smem <= 232_448
+    row = 4 * (4 * 8 + 4)
+    assert (4 * n) % 16 == 0 and row % 16 == 0
+    assert len({(t * row) % 128 // 16 for t in range(8)}) == 8
+    # one thread a lifted index, one codeword a block
+    plan = decode_cuda.bp_plan(Z, "layered")
+    assert (plan.threads, plan.codewords) == (Z, 1)
+
+
+@pytest.mark.parametrize("Z", [513, 1024, 0, -1])
+def test_layered_layout_refuses_past_512(Z):
+    assert decode_cuda.layered_smem_bytes(Z) == 0
+    with pytest.raises(ValueError, match="layered BP kernel takes Z <= 512"):
+        decode_cuda.bp_plan(Z, "layered")
 
 
 def _awgn(code, seed):

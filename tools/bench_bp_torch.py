@@ -19,21 +19,31 @@ over the dv base rows). --wide adds the codes of mimo_4x8_nbf at 64- and
 256-QAM (n = 3,072 and 4,096, Z = 384 and 512; 2,048 codewords each, as
 chip_smoke.py's [K1 Z384/Z512] lines), without attribution builds.
 
-Then the attribution builds of the flooding kernel
-(ldpc/decode_cuda.py:DIAG_BUILDS; compile-time switches of csrc/bp_decode.cu,
-launched only here and counted in `launches_diag`, results wrong by design)
-the same way: the kernel at a fixed iteration count without the exit vote
-("fixed"), then with the check rule a copy of its inputs, the syndrome
-removed, the variable update removed, and all three ("floor"). "fixed"
-minus each build is what that part costs an iteration; the floor is the
-barriers and the shared-memory reads and writes that remain. --no-diag
-leaves them out.
+Then the attribution builds of both kernels (ldpc/decode_cuda.py:
+DIAG_BUILDS; compile-time switches of csrc/bp_decode.cu and
+csrc/bp_decode_layered.cu, launched only here through
+`ldpc_decode_bp_diag(..., schedule=...)` and counted in `launches_diag`,
+results wrong by design) the same way: the kernel at a fixed iteration
+count without the exit vote ("fixed"), then with the check rule a copy of
+its inputs, the syndrome removed, the variable update (layered: the
+posterior write) removed, and all three ("floor"). "fixed" minus each build
+is what that part costs an iteration; the floor is the barriers and the
+shared-memory reads and writes that remain. One `[diag split ...]` line per
+rule, code and schedule. --no-diag leaves them out.
 
 --ptxas first compiles both BP sources with -Xptxas -v and prints the
-registers and spill bytes of every kernel in them (template arguments: DC,
-DV, checks a thread and the attribution mask; DV and DC for the layered
-kernel); it exits 1 if a build spills. --device cpu runs the plain versions on a small batch
-against the host clock: a check that the tool runs, not a time of the card.
+registers and spill bytes of every kernel in them (the template arguments
+in order); it exits 1 if a build spills. It then counts, with `cuobjdump
+-sass`, the instructions of each decode kernel's sweep loop (the span of
+its longest backward branch) for each check rule: the layered kernel's rule
+is a template argument, the flooding kernel's a runtime one, so its source
+is compiled once more per rule with the rule fixed (-DBP_SASS_ALGO). Over
+the edges a thread covers in a sweep that is the issue slots an edge, and
+edges x slots / (128 thread slots a clock per SM x SMs x the card's top SM
+clock) the issue floor of a sweep over the batch, printed beside the
+measured ms. --device cpu runs the
+plain versions on a small batch against the host clock: a check that the
+tool runs, not a time of the card.
 """
 from __future__ import annotations
 
@@ -62,37 +72,110 @@ DIAG_NAMES = {1: "fixed", 3: "copy rule", 5: "no syndrome",
               9: "no var update", 15: "floor"}
 
 
-def ptxas_report() -> bool:
-    """Print registers and spills per BP kernel; True if none spills."""
+_KERNEL = re.compile(r"(bp_[a-z_]*kernel)(I(?:L[ib]\d+E)+E)?")
+
+
+def _entry(mangled_match) -> tuple:
+    """(kernel name, template arguments) of a mangled kernel symbol."""
+    return (mangled_match.group(1), tuple(
+        int(a) for a in re.findall(r"L[ib](\d+)E",
+                                   mangled_match.group(2) or "")))
+
+
+def ptxas_report(tmp: str) -> tuple:
+    """Print registers and spills per BP kernel; build into `tmp` the
+    libraries whose SASS holds each (schedule, rule)'s decode kernel: the
+    layered source's own, the flooding source once per rule with the rule
+    fixed. Returns (True if no build spills, {(schedule, algo): library})."""
     from esn_ofdm_mimo_tpu_torch.utils import build
     clean = True
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = {n: subprocess.Popen(
-            build._nvcc_cmd(n, os.path.join(tmp, f"{n}.so"))
-            + ["-Xptxas", "-v"], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-            for n in ("bp_decode", "bp_decode_layered")}
-        for name, p in procs.items():
-            log, _ = p.communicate()
-            if p.returncode:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-            entry, spill = "?", ("?", "?")
-            for line in log.splitlines():
-                m = re.search(r"(bp_[a-z_]*kernel)((?:I|Li\d+E)*)", line)
-                if m and "entry function" in line:
-                    args = re.findall(r"Li(\d+)E", m.group(2))
-                    entry = f"{m.group(1)}<{', '.join(args)}>"
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", line)
-                if m:
-                    spill = m.groups()
-                m = re.search(r"Used (\d+) registers", line)
-                if m:
-                    print(f"[ptxas {name}] {entry}: {m.group(1)} registers, "
-                          f"spill stores/loads {spill[0]}/{spill[1]} B",
-                          flush=True)
-                    clean &= spill == ("0", "0")
-    return clean
+    out = lambda tag: os.path.join(tmp, f"{tag}.so")  # noqa: E731
+    flood, layered = decode_cuda._SOURCES.values()
+    jobs = {n: build._nvcc_cmd(n, out(n)) + ["-Xptxas", "-v"]
+            for n in (flood, layered)}
+    jobs.update({a: build._nvcc_cmd(flood, out(a)) + [f"-DBP_SASS_ALGO={i}"]
+                 for i, a in enumerate(ALGOS)})
+    procs = {key: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+             for key, cmd in jobs.items()}
+    libs = {}
+    for key, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        if key in ALGOS:
+            libs[("flooding", key)] = out(key)
+            continue
+        entry, spill = "?", ("?", "?")
+        for line in log.splitlines():
+            m = _KERNEL.search(line)
+            if m and "entry function" in line:
+                k, args = _entry(m)
+                entry = f"{k}<{', '.join(map(str, args))}>"
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = m.groups()
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                print(f"[ptxas {key}] {entry}: {m.group(1)} registers, "
+                      f"spill stores/loads {spill[0]}/{spill[1]} B",
+                      flush=True)
+                clean &= spill == ("0", "0")
+    libs.update({("layered", a): out(layered) for a in ALGOS})
+    return clean, libs
+
+
+def sweep_loops(lib: str) -> dict:
+    """{(kernel, template arguments): instructions of its sweep loop} for
+    every BP kernel in a built library: the span, in SASS instructions, of
+    the function's longest backward branch."""
+    from esn_ofdm_mimo_tpu_torch.utils import build
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    loops, key, addrs = {}, None, []
+
+    def close():
+        if key is not None:
+            spans = [(a - t) for a, t in addrs if t < a]
+            loops[key] = max(spans, default=0) // 16 + 1
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            k = _KERNEL.search(m.group(1))
+            key, addrs = (_entry(k) if k else None), []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*)", line)
+        if m and key is not None:
+            b = re.search(r"\bBRA(?:\.\S+)?\s+(?:\S+,\s*)?(0x[0-9a-f]+)",
+                          m.group(2))
+            if b:
+                addrs.append((int(m.group(1), 16), int(b.group(1), 16)))
+    close()
+    return loops
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock (nvidia-smi clocks.max.sm)."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def decode_kernel(schedule: str, Z: int, algo: str) -> tuple:
+    """((kernel, template arguments), edges a thread covers in a sweep) of
+    the decode build (no attribution switch) launched at lifting size Z for
+    the rule `algo` (the flooding kernel's rule is a runtime argument: its
+    count comes from the build with the rule fixed)."""
+    dc, dv = decode_cuda._DC, decode_cuda._DV
+    if schedule == "flooding":
+        cpt = decode_cuda.checks_per_thread(Z)
+        flip = int(cpt == 1 or Z & (Z - 1) == 0)
+        return ("bp_flooding_kernel", (dc, dv, cpt, flip, 0)), dc * cpt
+    return ("bp_layered_kernel", (ALGOS.index(algo), 0)), dv * dc
 
 
 def awgn_llrs(code, B: int, dev, seed: int = 1) -> torch.Tensor:
@@ -123,16 +206,39 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     on_card = dev.type == "cuda"
+    loops = {}           # (schedule, algo) -> {(kernel, args): instructions}
     if on_card:
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip(), flush=True)
-        if args.ptxas and not ptxas_report():
-            print("bench_bp_torch: a BP build spills", file=sys.stderr)
-            return 1
+        if args.ptxas:
+            with tempfile.TemporaryDirectory() as tmp:
+                clean, libs = ptxas_report(tmp)
+                if not clean:
+                    print("bench_bp_torch: a BP build spills",
+                          file=sys.stderr)
+                    return 1
+                for key, lib in libs.items():
+                    loops[key] = sweep_loops(lib)
+            clock = sm_clock_hz()
+            n_sm = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+            print(f"[sass] issue rate: 128 thread slots a clock x {n_sm} "
+                  f"SMs x {clock / 1e9:.3f} GHz (clocks.max.sm)", flush=True)
     else:
         print("cpu: plain versions, host clock (not a device time)")
+
+    def issue_floor(schedule: str, algo: str, code, B: int):
+        """(slots an edge, ms a sweep at the issue rate) of the decode
+        kernel the code launches, from its sweep loop's instructions; None
+        without --ptxas."""
+        if (schedule, algo) not in loops:
+            return None
+        key, edges_thread = decode_kernel(schedule, code.qc.Z, algo)
+        slots = loops[(schedule, algo)][key] / edges_thread
+        edges = B * code.dv * code.n
+        return slots, 1e3 * edges * slots / (128 * n_sm * clock)
 
     def ms(fn) -> float:
         fn()
@@ -151,17 +257,20 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)
         return e0.elapsed_time(e1) / args.reps
 
-    def marginal(label: str, code, llr, run) -> float:
+    def marginal(label: str, code, llr, run, floor=None) -> float:
         """run(cap) -> stats; prints and returns ms per iteration."""
         t = {c: ms(lambda c=c: run(c)) for c in (args.lo, args.hi)}
         conv = int(run(args.hi)["converged"].sum())
         per = (t[args.hi] - t[args.lo]) / (args.hi - args.lo)
         edges = code.dv * code.n * llr.shape[0]
+        issue = "" if floor is None else (
+            f" | {floor[0]:.2f} slots an edge, issue floor {floor[1]:.4f} "
+            f"ms an iteration ({floor[1] / per:.0%} of it)")
         print(f"[{label}] {llr.shape[0]} codewords of n = {code.n} at "
               f"{EBNO_DB} dB, converged {conv} | {args.lo} it "
               f"{t[args.lo]:.3f} ms, {args.hi} it {t[args.hi]:.3f} ms | "
               f"{per:.4f} ms an iteration, {1e9 * per / edges:.4f} ps an "
-              f"edge-iteration (card-wide)", flush=True)
+              f"edge-iteration (card-wide){issue}", flush=True)
         return per
 
     nbf = mimo_4x8_nbf()
@@ -177,21 +286,28 @@ def main(argv=None) -> int:
                 marginal(f"{schedule} {algo}", code, llr,
                          lambda c, s=schedule, a=algo:
                          decode_cuda.ldpc_decode_bp_cuda(
-                             code, llr, c, a, schedule=s, **kw)[1])
-        for algo in ALGOS if diag and not args.no_diag else ():
-            per = {d: marginal(
-                f"diag {DIAG_NAMES[d]} {algo}", code, llr,
-                lambda c, d=d, a=algo: decode_cuda.ldpc_decode_bp_diag(
-                    code, llr, c, a, d, **kw)[1])
-                for d in decode_cuda.DIAG_BUILDS}
-            parts = {"check arithmetic": per[1] - per[3],
-                     "syndrome": per[1] - per[5],
-                     "var update": per[1] - per[9], "floor": per[15]}
-            print(f"[diag split {algo} n = {code.n}] ms an iteration: fixed "
-                  f"{per[1]:.4f} = " + " + ".join(
-                      f"{k} {v:.4f}" for k, v in parts.items())
-                  + f" + not additive {per[1] - sum(parts.values()):.4f}",
-                  flush=True)
+                             code, llr, c, a, schedule=s, **kw)[1],
+                         issue_floor(schedule, algo, code, llr.shape[0]))
+        for schedule in ("flooding", "layered") if diag else ():
+            for algo in ALGOS if not args.no_diag else ():
+                names = {**DIAG_NAMES, **(
+                    {9: "no posterior write"} if schedule == "layered"
+                    else {})}
+                per = {d: marginal(
+                    f"diag {schedule} {names[d]} {algo}", code, llr,
+                    lambda c, d=d, a=algo, s=schedule:
+                    decode_cuda.ldpc_decode_bp_diag(
+                        code, llr, c, a, d, schedule=s, **kw)[1])
+                    for d in decode_cuda.DIAG_BUILDS}
+                parts = {"check arithmetic": per[1] - per[3],
+                         "syndrome": per[1] - per[5],
+                         names[9].replace("no ", ""): per[1] - per[9],
+                         "floor": per[15]}
+                print(f"[diag split {algo} n = {code.n} {schedule}] ms an "
+                      f"iteration: fixed {per[1]:.4f} = " + " + ".join(
+                          f"{k} {v:.4f}" for k, v in parts.items())
+                      + f" + not additive "
+                      f"{per[1] - sum(parts.values()):.4f}", flush=True)
     print(f"launches: decode {decode_cuda.launches} layered "
           f"{decode_cuda.launches_layered} attribution builds "
           f"{decode_cuda.launches_diag}")
