@@ -28,15 +28,22 @@ nvcc per source, all started together; sm_90a), then:
      (flooding: threads, checks a thread, shared memory; layered: threads,
      codewords a block, shared memory, the build's registers and resident
      blocks an SM), ms and bound;
+     [K1 siso] the siso_qpsk_awgn code (n = 1,024, Z = 128: 512 threads,
+     one check a thread) on 4,096 codewords at Eb/N0 1.5 and 2.5 dB: both
+     min-sum rules identical, sum-product (the preset's rule) in the band,
+     with the plan, ms, plain ms and bound;
   3. K2, the ESN predict recurrence (csrc/esn_predict.cu), against its plain
      version at the flagship detect shape (9,472 rows, T = 138, n_res = 300,
      128 readouts of 74 rows): noise 0 within atol 1e-4 / rtol 1e-3, noise
      1e-3 within the plain version's own noise band; [K2-nbf] the same check
      at the mimo_4x8_nbf detect shape (2,304 rows, T = 522, n_res = 600);
      [K2 ragged] batches that no tile height divides (9,435 rows) and that
-     are smaller than the card's SM count (100 rows); each line prints the
-     tiling the wrapper chose (rows a block, blocks, blocks an SM, shared
-     memory);
+     are smaller than the card's SM count (100 rows); [K2 siso] the
+     siso_qpsk_awgn detect shape (399 rows of one block, T = 512, n_in =
+     n_out = 2, n_res = 200) and [K2 sweep n_res 50 / 600] the sweep's 2x2
+     plant (288 rows, T = 522, n_in = n_out = 4), noise 0; each line prints
+     the tiling the wrapper chose (rows a block, blocks, blocks an SM,
+     shared memory);
   4. K3, the ESN state harvest (csrc/esn_states.cu, a thread-block cluster
      kernel), against plain esn_states at the mimo_4x8_nbf fit shape (128 x
      522 x 600) and the flagship fit shape (128 x 138 x 300), the same
@@ -47,7 +54,10 @@ nvcc per source, all started together; sm_90a), then:
      yardstick: one cuDNN call of torch.nn.RNN (tanh, no bias) that computes
      the same function at noise 0, its ms and its error against plain (the
      port never calls it; its ms is K3's library_ms); [K3 ragged] 100, 9 and
-     300 rows at the NBF fit shape;
+     300 rows at the NBF fit shape; [K3 siso 1 row / 16 rows] the
+     siso_qpsk_awgn fit (512 x 200, n_in = n_out = 2) and [K3 sweep n_res
+     50 / 600] the sweep's fits (16 x 522, n_in = n_out = 4), noise 0, with
+     the plan, ms, plain ms and bound;
   5. K4, the grouped-readout predict (csrc/esn_predict_grouped.cu), against
      plain grouped esn_predict and against K2 at the flagship detect shape,
      [K4-nbf] the same at the mimo_4x8_nbf detect shape (3 slots a block);
@@ -70,11 +80,16 @@ nvcc per source, all started together; sm_90a), then:
        [nbf main] `nbf_snr_point` on mimo_4x8_nbf (N = 512, 4x8, n_res = 600,
        T = 522, D = 18, n = 2048), 128 blocks, one round at 3 dB (doubled
        BP cap) and at 12 dB, five detectors: K1, K2 and K3 launched;
+       [nbf uncoded] the 12 dB point with ldpc.enabled=False on the same
+       keys: no BP launched, no decode phase, the coded counters empty,
+       every uncoded BER within 10% of the coded run's;
        [main] `cdl_snr_point` on the flagship mimo_4x8_cdl (N = 128, 4x8,
        n_res = 300, D = 74, n = 512), 128 blocks, one calibration and one
        decode round at 12 dB: K1, K2 and K3 launched;
        [main grouped] the same flagship point with
        ESN_TPU_PREDICT_READOUT=grouped: K4 launched;
+       [main newton] the same point with CalibConfig(fit_method="newton"):
+       coded BERs within 25% + 2e-3 of the GD fit's, both fits' ms;
        [curve] the CLI, esn_ofdm_mimo_tpu_torch.experiments.run.main, on
        mimo_4x8_cdl at 9, 12 and 15 dB, 256 blocks per SNR in rounds of 128
        with the adaptive top-up and checkpoints: K1, K2, K3 launched, the
@@ -88,6 +103,24 @@ nvcc per source, all started together; sm_90a), then:
        artifacts written, BERs equal to `nbf_snr_point` on the same keys;
        [curve nbf qam6] the same with --qam-bits 6 at 12 dB: K1 at n =
        3,072 (Z = 384), the CSV equal to `nbf_snr_point` on the same keys;
+       [curve siso] the CLI on siso_qpsk_awgn at full width (N = 512,
+       400-symbol blocks, n_res 200), 8 rounds of one block at 12, 15 and
+       21 dB: K1, K2 and K3 launched, the artifacts parsed, BERs in bands
+       of the JAX package's TPU curve (MMSE uncoded 0.7-1.4x of 3.85e-3 at
+       12 dB, ESN uncoded 0.5-2x of 1.99e-3 at 15 dB and <= 1e-4 at 21 dB,
+       MMSE coded 0 at 21 dB);
+       [curve gallager] the CLI on mimo_2x2_nbf --ldpc-family gallager at
+       12 and 18 dB (16 blocks) and [curve pyldpc] on mimo_4x8_cdl
+       --ldpc-family pyldpc at 12 dB (128 blocks): the graph decoder ran
+       and no BP kernel, MMSE coded <= uncoded (Gallager at 18 dB: at 12 dB
+       the JAX package's own curve has coded above uncoded; pyldpc <= 0.02),
+       beside the JAX package's TPU runs, MMSE uncoded within 10% of a QC
+       run on the same keys, decode ms of both;
+       [sweep] experiments.sweep.main --param reservoir and spectral, 16
+       blocks of mimo_2x2_nbf at 12 dB: K2 once and K3 twice a value, every
+       BER in (0, 0.5), the JSON written; run_sweep at 2 blocks and noise 0
+       on the card against the CPU within 1% + 10 bit errors a value.
+     No QC path may reach the graph decoder (its count stays 0);
   8. one JSON line listing the kernels (launches on the main paths, error
      against the plain version, times, bound: the largest of bytes over the
      memory rate, fp32 operations over the fp32 peak and transcendentals
@@ -104,7 +137,9 @@ busy share of each run's wall time.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import json
 import os
 import pickle
@@ -166,8 +201,11 @@ def main() -> None:
         _fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
 
     from esn_ofdm_mimo_tpu_torch import config as tc
-    from esn_ofdm_mimo_tpu_torch.experiments.presets import (mimo_4x8_cdl,
-                                                             mimo_4x8_nbf)
+    from esn_ofdm_mimo_tpu_torch.experiments.presets import (mimo_2x2_nbf,
+                                                             mimo_4x8_cdl,
+                                                             mimo_4x8_nbf,
+                                                             siso_qpsk_awgn)
+    from esn_ofdm_mimo_tpu_torch.ldpc import decode as bp_graph
     from esn_ofdm_mimo_tpu_torch.ldpc import decode_cuda, ldpc_encode, \
         make_code
     from esn_ofdm_mimo_tpu_torch.ldpc.decode import ldpc_decode_bp_plain
@@ -181,6 +219,7 @@ def main() -> None:
     from esn_ofdm_mimo_tpu_torch.experiments import run as cli
     from esn_ofdm_mimo_tpu_torch.models.esn import (ABLATE_PARTS,
                                                     esn_predict_ablate)
+    from esn_ofdm_mimo_tpu_torch.experiments import sweep as esn_sweep
     from esn_ofdm_mimo_tpu_torch.parallel import (cdl_snr_point,
                                                   nbf_snr_point,
                                                   run_cdl_curve)
@@ -198,7 +237,9 @@ def main() -> None:
                 (esn_cuda, "launches", "esn_predict"),
                 (esn_states_cuda, "launches", "esn_states"),
                 (esn_cuda, "launches_grouped", "esn_predict_grouped"),
-                (esn_cuda, "launches_ablate", "esn_predict_ablate"))
+                (esn_cuda, "launches_ablate", "esn_predict_ablate"),
+                # not a kernel: the plain BP of Gallager and pyldpc codes
+                (bp_graph, "graph_decodes", "graph_decode"))
 
     def reset_counts():
         for mod, attr, _ in counters:
@@ -508,6 +549,39 @@ def main() -> None:
                      f"kernel {ms_w:.3f} ms bound {b_w:.4f} ms ({by_w})")
     del u_w, llr_w
 
+    # K1 at the siso_qpsk_awgn code: n = 1024, Z = 128, dv * Z = 512 checks,
+    # one a thread; the preset decodes with sum-product
+    siso = siso_qpsk_awgn()
+    code_s = make_code(siso.ldpc,
+                       siso.ofdm.n_subcarriers * siso.ofdm.bits_per_symbol)
+    plan_s = decode_cuda.bp_plan(code_s.qc.Z)
+    u_s, llr_s = awgn_codewords(code_s, 2048, (1.5, 2.5))
+    for algo in ("offset-minsum", "minsum", "sumprod"):
+        kw_s = dict(max_iter=siso.ldpc.max_iter, algo=algo,
+                    minsum_offset=siso.ldpc.minsum_offset)
+        if algo == "sumprod":
+            it_s, conv_s = k1_band(code_s, llr_s, u_s, f"K1 siso {algo}",
+                                   **kw_s)
+            same = "in the band"
+        else:
+            it_s, conv_s = k1_identical(code_s, llr_s, u_s,
+                                        f"K1 siso {algo}", **kw_s)
+            same = "bits, iterations, converged, counts identical"
+        ms_s = cuda_ms(lambda: decode_cuda.ldpc_decode_bp_cuda_counts(
+            code_s, llr_s, u_s, **kw_s), 3)
+        plain_s = cuda_ms(lambda: ldpc_decode_bp_plain(
+            code_s, llr_s, count_against=u_s, **kw_s), 1)
+        b_s, by_s = _bound(*k1_work(code_s, llr_s, u_s, it_s, algo))
+        _log(f"[K1 siso] {algo}, {llr_s.shape[0]} codewords of n = "
+             f"{code_s.n} (Z = {code_s.qc.Z}) at Eb/N0 1.5/2.5 dB, cap "
+             f"{siso.ldpc.max_iter} ({plan_s.threads} threads, "
+             f"{plan_s.checks_per_thread} check a thread, "
+             f"{plan_s.smem_bytes} B shared): {same} | mean iterations "
+             f"{it_s / llr_s.shape[0]:.3f} converged {conv_s:.4f} | kernel "
+             f"{ms_s:.3f} ms plain {plain_s:.3f} ms bound {b_s:.4f} ms "
+             f"({by_s})")
+    del u_s, llr_s
+
     # ---- 3. K2: ESN predict vs its plain version ----------------------------
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -635,6 +709,37 @@ def main() -> None:
          f"K2 {k4n_vs_k2:.3e} | kernel {k4n_ms:.3f} ms, K2 {k2n_ms:.3f} ms")
     del pk_n, pp_n, pg_n, inputs_n
 
+    def k2_shape(c, G_c: int, label: str, seed: int):
+        """K2 against its plain version at the detect shape of G_c blocks of
+        config c (noise 0: atol 1e-4 / rtol 1e-3), with its tiling, ms,
+        plain ms and bound."""
+        r, x, W, nf = predict_shape(c, G_c, seed)
+        err = close(esn_cuda.esn_predict_cuda(r, scale, W, x, nf, 0),
+                    esn_predict(r, scale, W, x, nf), f"K2 {label}")
+        ms = cuda_ms(lambda: esn_cuda.esn_predict_cuda(r, scale, W, x, nf,
+                                                       0), 3)
+        plain = cuda_ms(lambda: esn_predict(r, scale, W, x, nf), 1)
+        out = torch.empty(x.shape[0], x.shape[1] - nf, W.shape[2])
+        b_ms, by = _bound(*predict_work(r, x, W, out))
+        _log(f"[K2 {label}] rows {x.shape[0]} T {x.shape[1]} n_res "
+             f"{r.Wt.shape[0]} n_in {x.shape[2]} n_out {W.shape[2]} G {G_c} "
+             f"({k2_tiling(r, x, W)}): max abs err {err:.3e} | kernel "
+             f"{ms:.3f} ms plain {plain:.3f} ms bound {b_ms:.4f} ms ({by})")
+
+    # the siso_qpsk_awgn detect shape: one block a round, 399 data symbols,
+    # T = 512, n_in = n_out = 2, n_res = 200
+    k2_shape(siso, 1, "siso", 12)
+    # the sweep's 2x2 plant at its smallest and largest reservoir: 16
+    # blocks of 18 data symbols, T = 522, n_in = n_out = 4
+    nbf2 = mimo_2x2_nbf()
+
+    def with_reservoir(c, n_res: int):
+        return dataclasses.replace(c, esn=dataclasses.replace(
+            c.esn, n_reservoir=n_res))
+    for n_res_w in (50, 600):
+        k2_shape(with_reservoir(nbf2, n_res_w), 16, f"sweep n_res {n_res_w}",
+                 13)
+
     # ---- 4. K3: ESN state harvest vs its plain version ----------------------
     def k3_plan_str(p) -> str:
         return (f"cluster {p.cluster} CTAs x {p.clusters} clusters, "
@@ -735,6 +840,37 @@ def main() -> None:
              f"({k3_plan_str(plan_r)}): max abs err {err_r:.3e} | kernel "
              f"{cuda_ms(run_r, 2):.3f} ms")
     del r, x, d
+
+    def k3_shape(c, B_k: int, label: str, seed: int):
+        """K3 against plain esn_states at the fit shape of B_k blocks of
+        config c (noise 0: atol 1e-4 / rtol 1e-3), with its cluster plan,
+        ms, plain ms and bound."""
+        r, x, d = k3_operands(c, B_k, seed)
+        n_res_k, (_, T_k, n_in_k), n_out_k = (r.Wt.shape[0], x.shape,
+                                              d.shape[2])
+        plan_k = esn_states_cuda.device_plan(B_k, n_res_k, n_in_k, n_out_k,
+                                             dev)
+        run_k = lambda: esn_states_cuda.esn_states_cuda(         # noqa: E731
+            r, scale, x, d, 0)
+        err = close(run_k(), esn_states(r, scale, x, d), f"K3 {label}")
+        ms, plain = cuda_ms(run_k, 3), cuda_ms(
+            lambda: esn_states(r, scale, x, d), 1)
+        b_ms, by = _bound(
+            4 * (x.numel() + d.numel() + B_k * T_k * n_res_k
+                 + n_res_k * (n_res_k + n_in_k + n_out_k)),
+            2.0 * B_k * (T_k - 1) * n_res_k * (n_res_k + n_in_k + n_out_k))
+        _log(f"[K3 {label}] {B_k} x {T_k} x {n_res_k}, n_in {n_in_k} n_out "
+             f"{n_out_k} ({k3_plan_str(plan_k)}): max abs err {err:.3e} | "
+             f"kernel {ms:.3f} ms plain {plain:.3f} ms bound {b_ms:.4f} ms "
+             f"({by})")
+
+    # the siso_qpsk_awgn fit: one block a round (a cluster on one row), and
+    # sixteen; the sweep's fits at its smallest and largest reservoir
+    for B_k in (1, 16):
+        k3_shape(siso, B_k, f"siso {B_k} row{'s' if B_k > 1 else ''}", 14)
+    for n_res_w in (50, 600):
+        k3_shape(with_reservoir(nbf2, n_res_w), 16, f"sweep n_res {n_res_w}",
+                 15)
 
     # ---- 5. K4: grouped-readout predict vs plain and K2 ---------------------
     pg = esn_cuda.esn_predict_cuda(res, scale, Wt_out, inputs, n_forget, 0,
@@ -990,6 +1126,8 @@ def main() -> None:
         launches = read_counts()
         _check(all(launches[k] > 0 for k in need),
                f"{what}: a kernel of the path was never launched: {launches}")
+        _check("graph_decode" in need or launches["graph_decode"] == 0,
+               f"{what}: a QC code reached the graph decoder: {launches}")
         for k, v in launches.items():
             launches_total[k] += v
         return out, phases, wall, launches
@@ -1000,13 +1138,13 @@ def main() -> None:
                                   torch.arange(G_nbf))
                 .reshape(1, G_nbf, 2).numpy() for e in (3.0, 12.0)}
     nbf_snr_point(nbf, 12.0, nbf_keys[12.0][:, :8])              # warm-up
-    nbf_wall = {}
+    nbf_wall, nbf_pts = {}, {}
     for ebno_n in (3.0, 12.0):
         pt_n, ph_n, wall_n, la_n = count_run(
             lambda ph: nbf_snr_point(nbf, ebno_n, nbf_keys[ebno_n],
                                      timings=ph),
             ("bp_decode", "esn_predict", "esn_states"), f"nbf {ebno_n} dB")
-        nbf_wall[ebno_n] = wall_n
+        nbf_wall[ebno_n], nbf_pts[ebno_n] = wall_n, pt_n
         ber = {d: v / pt_n.total_bits for d, v in pt_n.bit_errors.items()}
         coded = {d: v / pt_n.total_info_bits
                  for d, v in pt_n.info_errors.items()}
@@ -1041,6 +1179,33 @@ def main() -> None:
             _check(coded["mmse"] <= ber["mmse"],
                    "NBF MMSE coded BER above its uncoded BER at 12 dB")
 
+    # uncoded block fading: the same 12 dB keys with ldpc.enabled=False,
+    # so the data symbols carry raw bits; no BP of any kind runs
+    nbf_unc = dataclasses.replace(nbf, ldpc=dataclasses.replace(
+        nbf.ldpc, enabled=False))
+    pt_u, ph_u, wall_u, la_u = count_run(
+        lambda ph: nbf_snr_point(nbf_unc, 12.0, nbf_keys[12.0], timings=ph),
+        ("esn_predict", "esn_states"), "nbf uncoded")
+    _check(la_u["bp_decode"] == 0 and la_u["bp_decode_layered"] == 0
+           and "decode" not in ph_u,
+           f"nbf uncoded: a decode ran: {la_u} {ph_u}")
+    pt_c = nbf_pts[12.0]
+    ber_u = {d: v / pt_u.total_bits for d, v in pt_u.bit_errors.items()}
+    ber_cu = {d: v / pt_c.total_bits for d, v in pt_c.bit_errors.items()}
+    _check(pt_u.total_info_bits == 0 and pt_u.ldpc_codewords == 0
+           and not any(pt_u.info_errors.values())
+           and pt_u.total_bits == pt_c.total_bits,
+           f"nbf uncoded: coded counters not empty: {pt_u}")
+    for d in ber_u:
+        _check(abs(ber_u[d] - ber_cu[d]) <= 0.1 * ber_cu[d],
+               f"nbf uncoded {d}: uncoded BER {ber_u[d]} not within 10% of "
+               f"the coded run's {ber_cu[d]} on the same keys")
+    _log(f"[nbf uncoded] mimo_4x8_nbf ldpc.enabled=False, 12 dB, {G_nbf} "
+         f"blocks: uncoded BER {ber_u} | the coded run's uncoded BER "
+         f"{ber_cu} | phases ms "
+         f"{json.dumps({k: round(v, 3) for k, v in ph_u.items()})} wall "
+         f"{1e3 * wall_u:.3f} ms | launches {la_u}")
+
     # the flagship: mimo_4x8_cdl at 12 dB
     ebno = 12.0
     G_main = 128
@@ -1050,9 +1215,10 @@ def main() -> None:
     D = cfg.data_symbols_per_block
     det_syms = G_main * (D + 1)
 
-    def flagship(what: str, need):
+    def flagship(what: str, need, c_f=cfg):
         pt, phases, wall, launches = count_run(
-            lambda ph: cdl_snr_point(cfg, ebno, keys[0], keys[1], timings=ph),
+            lambda ph: cdl_snr_point(c_f, ebno, keys[0], keys[1],
+                                     timings=ph),
             need, what)
         c = pt.counts
         ber = {d: c.bit_errors[d] / c.total_bits for d in c.bit_errors}
@@ -1082,18 +1248,33 @@ def main() -> None:
                "MMSE coded BER above its uncoded BER")
         _check(c.ldpc_codewords == G_main * D * cfg.channel.n_tx,
                "unexpected codeword count")
-        return wall, launches
+        return wall, launches, ber_coded, phases
 
-    wall, _ = flagship("main", ("bp_decode", "esn_predict", "esn_states"))
+    wall, _, coded_gd, ph_gd = flagship(
+        "main", ("bp_decode", "esn_predict", "esn_states"))
     # the JAX package's own switch to the grouped-readout kernel
     os.environ["ESN_TPU_PREDICT_READOUT"] = "grouped"
     try:
-        _, la_g = flagship("main grouped", ("bp_decode", "esn_states",
-                                            "esn_predict_grouped"))
+        _, la_g, _, _ = flagship("main grouped", ("bp_decode", "esn_states",
+                                                  "esn_predict_grouped"))
     finally:
         del os.environ["ESN_TPU_PREDICT_READOUT"]
     _check(la_g["esn_predict"] == 0,
            f"the grouped run still launched K2: {la_g}")
+    # the Newton calibrator fit on the same keys: coded BERs in the band
+    # of the layered-against-flooding check (25% + 2e-3 either way)
+    cfg_nt = dataclasses.replace(cfg, calib=dataclasses.replace(
+        cfg.calib, fit_method="newton"))
+    _, _, coded_nt, ph_nt = flagship(
+        "main newton", ("bp_decode", "esn_predict", "esn_states"), cfg_nt)
+    for d in coded_gd:
+        b_g, b_n = coded_gd[d], coded_nt[d]
+        _check(b_n <= 1.25 * b_g + 2e-3 and b_g <= 1.25 * b_n + 2e-3,
+               f"main newton {d}: coded BER {b_n} outside the band of the "
+               f"GD fit's {b_g}")
+    _log(f"[main newton] calib.fit_method newton: coded BER {coded_nt}, GD "
+         f"{coded_gd} | fit ms newton {ph_nt['fit']:.3f} GD "
+         f"{ph_gd['fit']:.3f}")
 
     # the micro-benchmark's predict group: the path that launches K5
     _, _, _, la_5 = count_run(
@@ -1289,6 +1470,179 @@ def main() -> None:
              f"equal to nbf_snr_point on the same keys | "
              f"wall {1e3 * wall_q:.1f} ms | launches {la_q}")
 
+        # the SISO-AWGN preset at full width (N = 512, 400-symbol blocks,
+        # n_res 200): rounds of one block, as the preset's budget has it
+        # (K3 on one row, K2 on 399), 8 rounds at each of 12, 15, 21 dB.
+        # Bands from the JAX package's own curve (TPU run,
+        # results/siso_qpsk_awgn_tpu_qc/results_ber.csv)
+        out_s = os.path.join(tmp, "siso")
+        _, _, wall_s, la_s = count_run(
+            lambda ph: cli.main(
+                ["--preset", "siso_qpsk_awgn", "--ebno-list", "12,15,21",
+                 "--blocks-per-device", "1", "--blocks-per-snr", "8",
+                 "--rounds-per-call", "8", "--outdir", out_s]),
+            ("bp_decode", "esn_predict", "esn_states"), "curve siso")
+        head_s, rows_s = read_csv(os.path.join(out_s, "results_ber.csv"))
+        col = {h: i for i, h in enumerate(head_s)}
+        ber_s = {r[0]: {h: r[i] for h, i in col.items()} for r in rows_s}
+        _check([r[0] for r in rows_s] == [12.0, 15.0, 21.0]
+               and "esn_fixed_uncoded" not in col
+               and os.path.exists(os.path.join(
+                   out_s, "siso_channel_capacity.png")) == os.path.exists(
+                   os.path.join(out_s, "BER_curves.png")),
+               f"curve siso: unexpected artifacts {head_s}")
+        gates = (
+            ("MMSE uncoded 12 dB", ber_s[12.0]["mmse_uncoded"], 0.7 * 3.85e-3,
+             1.4 * 3.85e-3),
+            ("ESN uncoded 15 dB", ber_s[15.0]["esn_uncoded"], 0.5 * 1.99e-3,
+             2.0 * 1.99e-3),
+            ("ESN uncoded 21 dB", ber_s[21.0]["esn_uncoded"], 0.0, 1e-4),
+            ("MMSE coded 21 dB", ber_s[21.0]["mmse_coded"], 0.0, 0.0))
+        for what, v, lo, hi in gates:
+            _check(lo <= v <= hi, f"curve siso: {what} BER {v} outside "
+                                  f"[{lo}, {hi}]")
+        _log(f"[curve siso] CLI siso_qpsk_awgn 12/15/21 dB, 8 rounds of one "
+             f"block (N 512, 399 data symbols, n_res 200, n = "
+             f"{code_s.n}): wall {1e3 * wall_s:.1f} ms | launches {la_s}")
+        for e_s, r in ber_s.items():
+            _log(f"[curve siso] EbNo {e_s:g} dB: " + " ".join(
+                f"{h} {v:.4e}" for h, v in r.items() if h != "EbNo(dB)"))
+        _log("[curve siso] gates (JAX package's TPU curve: MMSE uncoded "
+             "3.85e-3 at 12 dB, ESN uncoded 1.99e-3 at 15 dB and 2.4e-6 at "
+             "21 dB): " + ", ".join(f"{w} {v:.4e} in [{lo:.4g}, {hi:.4g}]"
+                                    for w, v, lo, hi in gates))
+
+        # the code families without QC structure: plain BP on the code's
+        # graph, the same keys as a QC run of the same preset
+        def family_run(preset, family, ebnos, n_blocks, G_f, c_qc, tag):
+            out_f = os.path.join(tmp, tag)
+            _, _, wall_f, la_f = count_run(
+                lambda ph: cli.main(
+                    ["--preset", preset, "--ldpc-family", family,
+                     "--ebno-list", ",".join(f"{e:g}" for e in ebnos),
+                     "--blocks-per-device", str(G_f),
+                     "--blocks-per-snr", str(n_blocks), "--outdir", out_f]),
+                ("graph_decode", "esn_predict", "esn_states"),
+                f"curve {family}")
+            _check(la_f["bp_decode"] == 0 and la_f["bp_decode_layered"] == 0,
+                   f"curve {family}: a BP kernel was launched: {la_f}")
+            head_f, rows_f = read_csv(os.path.join(out_f, "results_ber.csv"))
+            got = {r[0]: dict(zip(head_f, r)) for r in rows_f}
+            _check(list(got) == list(ebnos),
+                   f"curve {family}: unexpected rows {rows_f}")
+            c_f = dataclasses.replace(c_qc, ebno_db=tuple(ebnos), ldpc=
+                                      dataclasses.replace(c_qc.ldpc,
+                                                          family=family))
+            return got, wall_f, la_f, c_f
+
+        # mimo_2x2_nbf, Gallager: one round of 16 blocks at 12 and 18 dB.
+        # At 12 dB this preset's MMSE uncoded BER (~0.17) is beyond the
+        # rate-1/2 code and its coded BER lies above it, in the JAX
+        # package's own Gallager curve too (results/mimo_2x2_nbf_tpu_adapt_
+        # gal: 0.1722 uncoded, 0.1867 coded); "coded <= uncoded" is gated
+        # at 18 dB (there 0.0846 and 0.0586)
+        jax_gal = {12.0: (0.1722, 0.1867), 18.0: (0.0846, 0.0586)}
+        got_g, wall_g, la_g2, c_gal = family_run(
+            "mimo_2x2_nbf", "gallager", (12.0, 18.0), 16, 16, nbf2,
+            "gallager")
+        for jj, e_g in enumerate((12.0, 18.0)):
+            k_g = rng.block_keys(rng.prng_key(nbf2.seed), jj,
+                                 torch.arange(16)).reshape(1, 16, 2)
+            ph_qc, ph_g = {}, {}
+            pt_qc = nbf_snr_point(nbf2, e_g, k_g, timings=ph_qc)
+            unc_qc = pt_qc.bit_errors["mmse"] / pt_qc.total_bits
+            nbf_snr_point(c_gal, e_g, k_g, timings=ph_g)
+            g_u, g_c = got_g[e_g]["mmse_uncoded"], got_g[e_g]["mmse_coded"]
+            _check(abs(g_u - unc_qc) <= 0.1 * unc_qc
+                   and (e_g < 18.0 or g_c <= g_u),
+                   f"curve gallager {e_g} dB: MMSE {got_g[e_g]} against the "
+                   f"QC run's uncoded {unc_qc}")
+            _log(f"[curve gallager] CLI mimo_2x2_nbf --ldpc-family gallager "
+                 f"{e_g:g} dB, 16 blocks: MMSE uncoded {g_u:.4e} coded "
+                 f"{g_c:.4e} (QC run on the same keys: uncoded "
+                 f"{unc_qc:.4e}; JAX's TPU Gallager curve: "
+                 f"{jax_gal[e_g][0]} / {jax_gal[e_g][1]}) | decode ms graph "
+                 f"BP {ph_g['decode']:.3f}, QC kernel {ph_qc['decode']:.3f}")
+        _log(f"[curve gallager] wall {1e3 * wall_g:.1f} ms | launches "
+             f"{la_g2}")
+
+        # mimo_4x8_cdl, pyldpc: 128 blocks, one calibration and one decode
+        # round of 64; JAX's TPU run of the same family, 256 blocks
+        # (results/mimo_4x8_cdl_tpu_pyldpc12_s0): uncoded 0.0818, coded
+        # 0.0093
+        got_p, wall_p, la_p, c_py = family_run(
+            "mimo_4x8_cdl", "pyldpc", (12.0,), 128, 64, cfg, "pyldpc")
+        got_p = got_p[12.0]
+        ph_p, ph_q = {}, {}
+        res_p = run_cdl_curve(c_py, 128, blocks_per_round=64, progress=None,
+                              timings=ph_p)
+        res_q = run_cdl_curve(dataclasses.replace(c_py, ldpc=cfg.ldpc), 128,
+                              blocks_per_round=64, progress=None,
+                              timings=ph_q)
+        unc_q = res_q[0]["ber_uncoded"]["mmse"]
+        _check(got_p["MMSE_coded"] <= got_p["MMSE_uncoded"]
+               and got_p["MMSE_coded"] <= 0.02
+               and abs(got_p["MMSE_uncoded"] - unc_q) <= 0.1 * unc_q
+               and abs(res_p[0]["ber_coded"]["mmse"] - got_p["MMSE_coded"])
+               <= 1e-3 * got_p["MMSE_coded"],
+               f"curve pyldpc: MMSE {got_p} against the QC run's uncoded "
+               f"{unc_q}")
+        _log(f"[curve pyldpc] CLI mimo_4x8_cdl --ldpc-family pyldpc 12 dB, "
+             f"1 cal + 1 decode round of 64 blocks: MMSE uncoded "
+             f"{got_p['MMSE_uncoded']:.4e} coded {got_p['MMSE_coded']:.4e} "
+             f"(JAX's TPU run, 256 blocks: 0.0818 / 0.0093; QC run on the "
+             f"same keys: uncoded {unc_q:.4e} coded "
+             f"{res_q[0]['ber_coded']['mmse']:.4e}) | decode ms graph BP "
+             f"{ph_p['decode']:.3f}, QC kernel {ph_q['decode']:.3f} | wall "
+             f"{1e3 * wall_p:.1f} ms | launches {la_p}")
+
+        # the ESN sweep CLI on the 2x2 plant, 16 blocks at 12 dB: K2 and K3
+        # for every value (two fits a value: matched and fixed-SNR)
+        n_fits = 2 if nbf2.esn.train_ebno_fixed_db is not None else 1
+        for param in ("reservoir", "spectral"):
+            out_w = os.path.join(tmp, "sweeps")
+            n_val = len(esn_sweep.SWEEPS[param])
+            _, _, wall_w, la_w = count_run(
+                lambda ph: esn_sweep.main(
+                    ["--param", param, "--ebno", "12", "--blocks", "16",
+                     "--outdir", out_w]),
+                ("esn_predict", "esn_states"), f"sweep {param}")
+            with open(os.path.join(out_w, f"ESN_sweep_{param}.json")) as f:
+                sw = json.load(f)
+            _check(la_w["esn_predict"] == n_val
+                   and la_w["esn_states"] == n_fits * n_val
+                   and la_w["bp_decode"] == 0 and la_w["graph_decode"] == 0,
+                   f"sweep {param}: launches {la_w} for {n_val} values")
+            _check(list(sw) == [str(float(v))
+                                for v in esn_sweep.SWEEPS[param]]
+                   and all(0.0 < b < 0.5 for b in sw.values()),
+                   f"sweep {param}: unexpected ESN_sweep_{param}.json {sw}")
+            # the same sweep at 2 blocks on the card and on the CPU (the
+            # plain versions), state noise 0: a few bit flips apart
+            base0 = dataclasses.replace(nbf2, ldpc=dataclasses.replace(
+                nbf2.ldpc, enabled=False), esn=dataclasses.replace(
+                nbf2.esn, noise=0.0))
+            bits = 2 * nbf2.data_symbols_per_block * nbf2.channel.n_tx \
+                * nbf2.ofdm.n_subcarriers * nbf2.ofdm.bits_per_symbol
+            with contextlib.redirect_stdout(io.StringIO()):
+                on = {d: esn_sweep.run_sweep(param, 12.0, 2, 0, base0,
+                                             device=d)
+                      for d in ("cuda", "cpu")}
+            flips = {v: round(abs(on["cuda"][v] - on["cpu"][v]) * bits)
+                     for v in on["cpu"]}
+            _check(all(f <= 0.01 * on["cpu"][v] * bits + 10
+                       for v, f in flips.items()),
+                   f"sweep {param}: cuda and cpu differ: {on}")
+            with open(os.path.join(os.path.dirname(os.path.abspath(
+                    __file__)), "results", "esn_sweeps",
+                    f"ESN_sweep_{param}.json")) as f:
+                sw_jax = json.load(f)
+            _log(f"[sweep] {param} at 12 dB, 16 blocks of mimo_2x2_nbf: ESN "
+                 f"BER {sw} (the JAX package's TPU sweep, "
+                 f"results/esn_sweeps: {sw_jax}) | wall {1e3 * wall_w:.1f} "
+                 f"ms | launches {la_w} | 2 blocks at noise 0, bit errors "
+                 f"cuda - cpu {flips}")
+
     if "--profile" in sys.argv[1:]:
         _profile_main_path(
             "main", lambda: cdl_snr_point(cfg, ebno, keys[0], keys[1]),
@@ -1300,7 +1654,8 @@ def main() -> None:
 
     # ---- 8. result lines ----------------------------------------------------
     for name, n in launches_total.items():
-        kernels[name]["launches"] = n
+        if name in kernels:
+            kernels[name]["launches"] = n
     order = ("bp_decode", "bp_decode_layered", "esn_predict", "esn_states",
              "esn_predict_grouped", "esn_predict_ablate")
     keys_out = ("name", "route", "source", "replaces", "launches",

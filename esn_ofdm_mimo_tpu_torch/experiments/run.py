@@ -54,8 +54,10 @@ def _parser() -> argparse.ArgumentParser:
                          "(default: preset's, 0.625)")
     ap.add_argument("--ldpc-family", choices=("gallager", "qc", "pyldpc"),
                     default=None,
-                    help="override the code family (only qc is ported; the "
-                         "others are refused)")
+                    help="override the code family (pyldpc = the "
+                         "construction of pyldpc, decoded on its full-row "
+                         "graph; gallager and pyldpc decode with plain "
+                         "PyTorch BP, qc with the BP kernels)")
     ap.add_argument("--ldpc-seed", type=int, default=None,
                     help="override the code construction seed")
     ap.add_argument("--esn-target", choices=("pre_pa", "post_pa"),
@@ -83,8 +85,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--channel-kind", default=None,
                     choices=("exp_pdp", "cdl_a", "cdl_b", "cdl_c",
                              "awgn_flat"),
-                    help="channel-profile override (awgn_flat is not ported "
-                         "and is refused)")
+                    help="channel-profile override (38.901 TDL-A/-C beside "
+                         "the reference's exp-PDP and TDL-B, and the flat "
+                         "AWGN channel of siso_qpsk_awgn)")
     ap.add_argument("--qam-bits", type=int, default=None,
                     help="bits per QAM symbol override (any even m, e.g. 6 "
                          "for 64-QAM)")
@@ -102,21 +105,6 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default; fails without a GPU) or cpu (the "
                          "kernels' plain PyTorch versions)")
     return ap
-
-
-def _check_ported(cfg) -> None:
-    """Refuse, by name, what the port cannot run yet."""
-    missing = []
-    if cfg.ldpc.family != "qc":
-        missing.append(f"ldpc.family={cfg.ldpc.family!r} (only the qc "
-                       f"family is ported)")
-    if cfg.channel.kind == "awgn_flat" or cfg.channel.flat_scalar_ls:
-        missing.append("the awgn_flat channel with its scalar LS estimate "
-                       "(preset siso_qpsk_awgn)")
-    if not cfg.ldpc.enabled:
-        missing.append("uncoded runs (ldpc.enabled=False)")
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
 
 def main(argv=None) -> None:
@@ -147,7 +135,6 @@ def main(argv=None) -> None:
         if value is not None}
     if ldpc:
         cfg = replace(cfg, ldpc=replace(cfg.ldpc, **ldpc))
-    _check_ported(cfg)
     device = resolve_device(args.device)
 
     outdir = args.outdir or f"results/{cfg.name}"

@@ -1,16 +1,26 @@
-"""Quasi-cyclic (dv, dc)-regular LDPC code construction — host side, cached.
+"""Regular (dv, dc) LDPC code construction — host side, cached.
 
-An own NumPy copy of esn_ofdm_mimo_tpu/ldpc/code.py for the QC family (the
-flagship's `LdpcConfig(family="qc")`): the same shift-table search, GF(2)
-systematisation and index tensors, so the same seed gives the same H,
-shifts, permutation and gather maps as the JAX package. The Gallager and
-pyldpc families are not ported yet (`make_code` raises for them).
+An own NumPy copy of esn_ofdm_mimo_tpu/ldpc/code.py, all three families of
+`LdpcConfig.family`: the same draws, GF(2) systematisation and index
+tensors, so the same seed gives the same H, encoder, gather maps (and, for
+QC codes, shifts and permutation) as the JAX package.
 
-Construction (see make_qc_ldpc): H is a dv x dc grid of Z x Z shifted
-identity circulants; GF(2) elimination row-trims it to full rank and moves
-the pivot columns first, giving H' = [A | B] with encoder P = A^-1 B, so a
-codeword is [P u | u] with the info bits in the LAST k positions. BP decodes
-on the full lifted graph in natural column order (QcInfo).
+  * "qc" (make_qc_ldpc): H is a dv x dc grid of Z x Z shifted identity
+    circulants; BP decodes on the full lifted graph in natural column order
+    (QcInfo), through the BP kernels;
+  * "gallager" (make_regular_ldpc): dv strips of n/dc rows, strip 0 with
+    row i on columns [i*dc, (i+1)*dc), each further strip a random column
+    permutation of it (numpy default_rng(seed + 1,000,003)); the decode
+    graph is the row-trimmed H;
+  * "pyldpc" (make_pyldpc_ldpc): pyldpc's own construction (the legacy
+    RandomState(seed + 42,424,242), strips permuted as pyldpc permutes
+    them); the decode graph keeps every row, the dependent ones too.
+
+In every family GF(2) elimination row-trims H to full rank and moves the
+pivot columns first, giving H' = [A | B] with encoder P = A^-1 B, so a
+codeword is [P u | u] with the info bits in the LAST k positions. Gallager
+and pyldpc codes decode on their (ck_cols, var_edge) gather maps
+(ldpc/decode.py:_decode_bp_graph).
 """
 from __future__ import annotations
 
@@ -50,6 +60,20 @@ class LdpcCode(NamedTuple):
     var_edge: np.ndarray    # (n, dv) int32: flat indices into (m*dc) edge
     #                         array of the edges incident to variable v
     qc: QcInfo | None = None  # set for quasi-cyclic codes (make_qc_ldpc)
+
+
+def _gallager_H(n: int, dv: int, dc: int, rng: np.random.Generator
+                ) -> np.ndarray:
+    assert n % dc == 0
+    rows_per_strip = n // dc
+    strip = np.zeros((rows_per_strip, n), dtype=np.int8)
+    for i in range(rows_per_strip):
+        strip[i, i * dc:(i + 1) * dc] = 1
+    strips = [strip]
+    for _ in range(dv - 1):
+        perm = rng.permutation(n)
+        strips.append(strip[:, perm])
+    return np.concatenate(strips, axis=0)
 
 
 def _gf2_pivot_columns(H: np.ndarray):
@@ -138,6 +162,55 @@ def _index_tensors(H: np.ndarray):
     return ck_cols, var_edge
 
 
+@functools.lru_cache(maxsize=None)
+def make_regular_ldpc(n: int, dv: int = 4, dc: int = 8,
+                      seed: int = 0) -> LdpcCode:
+    """Build (and cache) a regular Gallager code with a full-rank-trimmed H."""
+    rng = np.random.default_rng(seed + 1_000_003)
+    # redraw (50 times at most) until H has close to full row rank
+    for _ in range(50):
+        H = _gallager_H(n, dv, dc, rng)
+        _, rank = _gf2_pivot_columns(H)
+        if rank >= H.shape[0] - dv:
+            break
+    Hp, P, _ = _systematize(H)
+    m = Hp.shape[0]
+    ck_cols, var_edge = _index_tensors(Hp)
+    return LdpcCode(n=n, k=n - m, m=m, dv=dv, dc=dc, H=Hp, P=P,
+                    ck_cols=ck_cols, var_edge=var_edge)
+
+
+@functools.lru_cache(maxsize=None)
+def make_pyldpc_ldpc(n: int, dv: int = 4, dc: int = 8,
+                     seed: int = 0) -> LdpcCode:
+    """pyldpc's `parity_check_matrix` construction (reference `make_ldpc(n,
+    dv, dc, systematic=True, sparse=True)`, OFDM_SISO_NBF_LDPC.py:196, which
+    passes no seed): the legacy np.random.RandomState generator with the
+    strips permuted as `rng.permutation(block.T).T` does, and BP on the
+    FULL n*dv/dc-row H, its linearly dependent rows included, as pyldpc
+    decodes. The encoder comes from the systematised row space (the same
+    codebook), so the info bits are the last k, as in the other families.
+    """
+    rs = np.random.RandomState(seed + 42_424_242)
+    assert n % dc == 0
+    rows_per_strip = n // dc
+    block = np.zeros((rows_per_strip, n), dtype=np.int8)
+    for i in range(rows_per_strip):
+        block[i, i * dc:(i + 1) * dc] = 1
+    H_full = np.empty((dv * rows_per_strip, n), dtype=np.int8)
+    H_full[:rows_per_strip] = block
+    for i in range(1, dv):
+        H_full[i * rows_per_strip:(i + 1) * rows_per_strip] = \
+            rs.permutation(block.T).T
+    # encoder from the trimmed row space; the decode graph keeps every row
+    Hp, P, perm = _systematize(H_full)
+    m = Hp.shape[0]
+    H_dec = np.ascontiguousarray(H_full[:, perm])
+    ck_cols, var_edge = _index_tensors(H_dec)
+    return LdpcCode(n=n, k=n - m, m=m, dv=dv, dc=dc, H=H_dec, P=P,
+                    ck_cols=ck_cols, var_edge=var_edge)
+
+
 def _qc_shift_table(dv: int, dc: int, Z: int, seed: int) -> np.ndarray:
     """Pick a (dv, dc) circulant shift table: girth >= 6, few 6-cycles.
 
@@ -192,12 +265,10 @@ def _qc_shift_table(dv: int, dc: int, Z: int, seed: int) -> np.ndarray:
 
 
 def make_code(ldpc_cfg, n: int) -> LdpcCode:
-    """Build the code an LdpcConfig describes (QC family, cached)."""
-    if ldpc_cfg.family != "qc":
-        raise NotImplementedError(
-            f"LDPC family {ldpc_cfg.family!r} is not ported yet; the port "
-            "builds the QC family")
-    return make_qc_ldpc(n, ldpc_cfg.dv, ldpc_cfg.dc, ldpc_cfg.seed)
+    """Build the code an LdpcConfig describes (family dispatch, cached)."""
+    maker = {"gallager": make_regular_ldpc, "qc": make_qc_ldpc,
+             "pyldpc": make_pyldpc_ldpc}[ldpc_cfg.family]
+    return maker(n, ldpc_cfg.dv, ldpc_cfg.dc, ldpc_cfg.seed)
 
 
 @functools.lru_cache(maxsize=None)

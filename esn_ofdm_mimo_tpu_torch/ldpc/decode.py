@@ -1,9 +1,13 @@
 """Belief-propagation LDPC decoding, flooding and layered: the plain PyTorch
 versions.
 
-Port of esn_ofdm_mimo_tpu/ldpc/decode.py for QC codes, and the plain
-versions of the CUDA kernels in ldpc/decode_cuda.py (csrc/bp_decode.cu,
-csrc/bp_decode_layered.cu). pyldpc semantics (reference
+Port of esn_ofdm_mimo_tpu/ldpc/decode.py: for QC codes the plain versions
+of the CUDA kernels in ldpc/decode_cuda.py (csrc/bp_decode.cu,
+csrc/bp_decode_layered.cu); for the Gallager and pyldpc families, whose
+codes have no QC structure, the JAX package's flooding decoder on the
+code's own gather maps (`_decode_bp_graph`, plain PyTorch on any device, as
+the JAX package runs it in XLA on every backend; its sum-product keeps the
+JAX decoder's 2 atanh(p)). pyldpc semantics (reference
 OFDM_SISO_NBF_LDPC.py:484):
   * channel LLR Lc = 2*y/10^(-snr/10) (`llr_from_yobs`); LLR > 0 <=> bit 0;
   * flooding schedule (the default) on the FULL lifted QC graph in natural
@@ -44,6 +48,9 @@ MSG_CLIP = 16.0
 _SP_CLIP = 0.9999999
 ALGOS = ("sumprod", "minsum", "offset-minsum")
 SCHEDULES = ("flooding", "layered")
+# Decodes on an unlifted code's graph (`_decode_bp_graph`) since the count
+# was last reset (by the caller): a QC code never comes here.
+graph_decodes = 0
 # Switches of the BP kernels' attribution builds (csrc/bp_decode.cu,
 # csrc/bp_decode_layered.cu; launched only by tools/bench_bp_torch.py): a
 # mask, 0 in every decode. In the layered kernel DIAG_NO_VAR_UPDATE drops the
@@ -62,9 +69,19 @@ def _check_args(code: LdpcCode, algo: str, schedule: str):
         if schedule == "layered":
             raise ValueError("schedule='layered' requires a QC code "
                              "(LdpcConfig.family='qc')")
-        raise NotImplementedError("the port decodes QC codes only")
+        raise ValueError("the BP kernels and their plain versions take QC "
+                         "codes; ldpc_decode_bp decodes the others on their "
+                         "graph")
     if algo not in ALGOS:
         raise ValueError(f"unknown BP check rule {algo!r}")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown BP schedule {schedule!r}")
+
+
+def _check_graph_args(schedule: str):
+    if schedule == "layered":
+        raise ValueError("schedule='layered' requires a QC code "
+                         "(LdpcConfig.family='qc')")
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown BP schedule {schedule!r}")
 
@@ -102,20 +119,25 @@ def log_ratio(p: torch.Tensor) -> torch.Tensor:
                        torch.log((1.0 + p) / (1.0 - p)))
 
 
+def _loo_prod(t: torch.Tensor) -> torch.Tensor:
+    """Leave-one-out products along the last axis, from forward and
+    backward running products (the JAX _leave_one_out_prod's order)."""
+    dc = t.shape[-1]
+    fwd = [torch.ones_like(t[..., 0])]
+    for j in range(dc - 1):
+        fwd.append(fwd[-1] * t[..., j])
+    bwd = [torch.ones_like(t[..., 0])]
+    for j in range(dc - 1, 0, -1):
+        bwd.append(bwd[-1] * t[..., j])
+    bwd = bwd[::-1]
+    return torch.stack([f * b for f, b in zip(fwd, bwd)], dim=-1)
+
+
 def _check_update(q: torch.Tensor, algo: str, minsum_scale: float,
                   minsum_offset: float) -> torch.Tensor:
     """q (B, m, dc) clipped var->check messages -> check->var messages."""
     if algo == "sumprod":
-        t = tanh_half(q)
-        dc = t.shape[-1]
-        fwd = [torch.ones_like(t[..., 0])]
-        for j in range(dc - 1):
-            fwd.append(fwd[-1] * t[..., j])
-        bwd = [torch.ones_like(t[..., 0])]
-        for j in range(dc - 1, 0, -1):
-            bwd.append(bwd[-1] * t[..., j])
-        bwd = bwd[::-1]
-        prod = torch.stack([f * b for f, b in zip(fwd, bwd)], dim=-1)
+        prod = _loo_prod(tanh_half(q))
         return log_ratio(torch.clamp(prod, -_SP_CLIP, _SP_CLIP))
     sgn = torch.where(q < 0, -1.0, 1.0)
     sgn_loo = sgn.prod(-1, keepdim=True) * sgn          # exact: +-1 values
@@ -179,38 +201,44 @@ def minsum_form(q: torch.Tensor, algo: str, minsum_scale: float,
     return (torch.where(a == m1, s2, s1) ^ (qi & _SIGN)).view(torch.float32)
 
 
-def _decode_flooding(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
-                     algo: str, minsum_scale: float, minsum_offset: float,
-                     diag: int = 0):
-    """Flooding BP in natural order. llr_nat (B, n) -> (bits_nat (B, n)
-    bool, iterations (B,) int32, converged (B,) bool).
-
-    `diag` (a mask of DIAG_*, 0 in every decode) selects the plain version
-    of one of the kernel's attribution builds, whose results are wrong by
-    design: DIAG_FIXED never exits (every codeword runs `cap` iterations),
-    DIAG_COPY_RULE makes the check rule return its inputs, and
-    DIAG_NO_VAR_UPDATE keeps the posteriors at the channel LLRs.
-    DIAG_NO_SYNDROME only removes work from the kernel: with DIAG_FIXED the
-    syndrome decides nothing."""
-    dev = llr_nat.device
-    ck = torch.as_tensor(code.qc.ck_cols_nat, dtype=torch.int64, device=dev)
-    ve = torch.as_tensor(code.qc.var_edge_nat, dtype=torch.int64, device=dev)
+def _flood(ck_cols: np.ndarray, var_edge: np.ndarray, llr: torch.Tensor,
+           cap: int, rule, diag: int = 0):
+    """Flooding BP on the gather maps ck_cols (m, dc) (the variables of each
+    check, padded with the sentinel n) and var_edge (n, dv) (the edges of
+    each variable, padded with m * dc). llr (B, n) in the maps' column
+    order -> (bits (B, n) bool, iterations (B,) int32, converged (B,)
+    bool). `rule` maps clipped var->check messages (b, m, dc) to check->var
+    messages; a padded edge brings it q = +inf (sign +, |q| no minimum,
+    tanh 1) and carries no message back. The posterior sums a variable's
+    messages in edge order. `diag` as in `_decode_flooding`."""
+    dev = llr.device
+    ck = torch.as_tensor(ck_cols, dtype=torch.int64, device=dev)
+    ve = torch.as_tensor(var_edge, dtype=torch.int64, device=dev)
     m_full, dc = ck.shape
+    n = llr.shape[1]
     dv = ve.shape[1]
-    B = llr_nat.shape[0]
+    valid = ck < n
+    padded = not bool(valid.all())          # checks of unequal degree
+    ve_padded = bool((ve == m_full * dc).any())
+    pad = torch.nn.functional.pad
 
     def posterior(lc, r):
-        x = r.reshape(r.shape[0], m_full * dc)[:, ve]         # (b, n, dv)
+        x = r.reshape(r.shape[0], m_full * dc)
+        if ve_padded:
+            x = pad(x, (0, 1))
+        x = x[:, ve]                                          # (b, n, dv)
         s = x[..., 0]
         for i in range(1, dv):
             s = s + x[..., i]
         return lc + s
 
     def syndrome_ok(d):
+        if padded:
+            d = pad(d, (0, 1))
         ok = (d[:, ck].sum(-1) % 2 == 0).all(-1)
         return torch.zeros_like(ok) if diag & DIAG_FIXED else ok
 
-    lc = llr_nat.to(torch.float32)
+    lc = llr.to(torch.float32)
     d = lc < 0
     bits = d.clone()
     done = syndrome_ok(d)
@@ -221,9 +249,13 @@ def _decode_flooding(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
     for it in range(cap):
         if act.numel() == 0:
             break
-        q = torch.clamp(lt_a[:, ck] - r_a, -MSG_CLIP, MSG_CLIP)
-        r_a = q if diag & DIAG_COPY_RULE else _check_update(
-            q, algo, minsum_scale, minsum_offset)
+        q = torch.clamp((pad(lt_a, (0, 1)) if padded else lt_a)[:, ck] - r_a,
+                        -MSG_CLIP, MSG_CLIP)
+        if padded:
+            q = torch.where(valid, q, float("inf"))
+        r_a = q if diag & DIAG_COPY_RULE else rule(q)
+        if padded:
+            r_a = torch.where(valid, r_a, 0.0)
         if not diag & DIAG_NO_VAR_UPDATE:
             lt_a = posterior(lc_a, r_a)
         d_a = lt_a < 0
@@ -236,6 +268,57 @@ def _decode_flooding(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
         keep = ~fin
         act, lc_a, lt_a, r_a = act[keep], lc_a[keep], lt_a[keep], r_a[keep]
     return bits, iters, done
+
+
+def _decode_flooding(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
+                     algo: str, minsum_scale: float, minsum_offset: float,
+                     diag: int = 0):
+    """Flooding BP on a QC code's full lifted graph in natural order, the
+    plain version of the flooding kernel. llr_nat (B, n) -> (bits_nat (B,
+    n) bool, iterations (B,) int32, converged (B,) bool).
+
+    `diag` (a mask of DIAG_*, 0 in every decode) selects the plain version
+    of one of the kernel's attribution builds, whose results are wrong by
+    design: DIAG_FIXED never exits (every codeword runs `cap` iterations),
+    DIAG_COPY_RULE makes the check rule return its inputs, and
+    DIAG_NO_VAR_UPDATE keeps the posteriors at the channel LLRs.
+    DIAG_NO_SYNDROME only removes work from the kernel: with DIAG_FIXED the
+    syndrome decides nothing."""
+    return _flood(code.qc.ck_cols_nat, code.qc.var_edge_nat, llr_nat, cap,
+                  lambda q: _check_update(q, algo, minsum_scale,
+                                          minsum_offset), diag)
+
+
+def _graph_check_update(q: torch.Tensor, algo: str, minsum_scale: float,
+                        minsum_offset: float) -> torch.Tensor:
+    """The check rules of the JAX package's graph decoder: the min-sum
+    rules as `_check_update`, sum-product as 2 atanh(p) of the clipped
+    leave-one-out product of tanh(q / 2) (JAX decode.py:341-347)."""
+    if algo != "sumprod":
+        return _check_update(q, algo, minsum_scale, minsum_offset)
+    prod = _loo_prod(torch.tanh(0.5 * q))
+    return 2.0 * torch.atanh(torch.clamp(prod, -_SP_CLIP, _SP_CLIP))
+
+
+def _decode_bp_graph(code: LdpcCode, llr: torch.Tensor, cap: int, algo: str,
+                     minsum_scale: float, minsum_offset: float,
+                     count_against: torch.Tensor | None = None):
+    """Flooding BP of a code without QC structure (Gallager, pyldpc) on its
+    gather maps (code.ck_cols, code.var_edge), in pipeline order (JAX
+    _decode_bp_graph). llr (B, n) -> (bits (B, n) int8, or per-codeword
+    info-bit errors (B,) int32 against `count_against` (B, k); stats)."""
+    global graph_decodes
+    if algo not in ALGOS:
+        raise ValueError(f"unknown BP check rule {algo!r}")
+    graph_decodes += 1
+    bits, iters, conv = _flood(
+        code.ck_cols, code.var_edge, llr, cap,
+        lambda q: _graph_check_update(q, algo, minsum_scale, minsum_offset))
+    stats = {"iterations": iters, "converged": conv}
+    if count_against is not None:
+        bad = bits[:, code.m:] != count_against.to(torch.bool)
+        return bad.sum(-1, dtype=torch.int32), stats
+    return bits.to(torch.int8), stats
 
 
 def _decode_layered(code: LdpcCode, llr_nat: torch.Tensor, cap: int,
@@ -367,8 +450,15 @@ def ldpc_decode_bp(code: LdpcCode, llr: torch.Tensor, max_iter: int = 100,
                    minsum_offset: float = 0.625):
     """Decode B codewords: llr (B, n) -> hard bits (B, n) int8 (+ stats).
 
-    CUDA tensors run the BP kernel of the schedule (ldpc/decode_cuda.py),
-    CPU tensors its plain version."""
+    QC codes: CUDA tensors run the BP kernel of the schedule
+    (ldpc/decode_cuda.py), CPU tensors its plain version. Other codes:
+    flooding BP on their graph (`_decode_bp_graph`) on either device;
+    pass1_iters does not apply."""
+    if code.qc is None:
+        _check_graph_args(schedule)
+        bits, st = _decode_bp_graph(code, llr, _effective_cap(
+            max_iter, iter_cap), algo, minsum_scale, minsum_offset)
+        return (bits, st) if return_stats else bits
     from .decode_cuda import ldpc_decode_bp_cuda
     bits, st = ldpc_decode_bp_cuda(code, llr, max_iter, algo, minsum_scale,
                                    iter_cap=iter_cap, schedule=schedule,
@@ -383,7 +473,12 @@ def ldpc_decode_bp_counts(code: LdpcCode, llr: torch.Tensor,
                           iter_cap=None, schedule: str = "flooding",
                           pass1_iters=None, minsum_offset: float = 0.625):
     """Decode + per-codeword info-bit error counts: info_bits (B, k)
-    pipeline order -> (err (B,) int32, stats)."""
+    pipeline order -> (err (B,) int32, stats). Routes as ldpc_decode_bp."""
+    if code.qc is None:
+        _check_graph_args(schedule)
+        return _decode_bp_graph(code, llr, _effective_cap(max_iter, iter_cap),
+                                algo, minsum_scale, minsum_offset,
+                                count_against=info_bits)
     from .decode_cuda import ldpc_decode_bp_cuda_counts
     return ldpc_decode_bp_cuda_counts(
         code, llr, info_bits, max_iter, algo, minsum_scale,

@@ -109,18 +109,48 @@ def esn_states(res: EsnReservoir, scale: EsnScale, inputs: torch.Tensor,
     return states
 
 
+def _ns_solver(A: torch.Tensor, iters: int = 40, refine: int = 2):
+    """The JAX package's readout solver (ops/linalg_mxu.py:ns_prepare, at
+    its 40 iterations): a Newton-Schulz inverse X <- X (2I - A X) of the
+    Jacobi-prescaled batched symmetric A (..., F, F) from X_0 = A^T /
+    (||A||_1 ||A||_inf), in fp32. Returns solve(b), which polishes each
+    solution with `refine` steps against A. The iteration only resolves
+    eigenvalues above ~2^-iters of the largest, so on a numerically singular
+    A it returns a regularised inverse where a factorisation fails."""
+    F = A.shape[-1]
+    s = 1.0 / torch.sqrt(torch.clamp_min(
+        torch.diagonal(A, dim1=-2, dim2=-1), 1e-30))
+    As = A * s[..., :, None] * s[..., None, :]
+    norm1 = As.abs().sum(-2).amax(-1)
+    norminf = As.abs().sum(-1).amax(-1)
+    X = As.transpose(-1, -2) / (norm1 * norminf)[..., None, None]
+    I2 = 2.0 * torch.eye(F, dtype=A.dtype, device=A.device)
+    for _ in range(iters):
+        X = X @ (I2 - As @ X)
+
+    def solve(b: torch.Tensor) -> torch.Tensor:
+        bs = b * s[..., :, None]
+        x = X @ bs
+        for _ in range(refine):
+            x = x + X @ (bs - As @ x)
+        return x * s[..., :, None]
+    return solve
+
+
 def _readout_lstsq(ext: torch.Tensor, tgt: torch.Tensor,
                    rel_jitter: float = 1e-7) -> torch.Tensor:
     """Batched ridge least squares: ext (B, R, F), tgt (B, R, n_out) ->
     Wt_out (B, F, n_out) with ext @ Wt_out ~= tgt.
 
     The Gram is formed in fp32 with a relative Tikhonov jitter
-    (rel_jitter * mean diagonal), factored by Cholesky in float64, and the
-    solution gets one step of iterative refinement against the original
-    operator. Tall systems (F <= R) solve the F x F primal normal
-    equations; wide ones (the flagship: F = 316 > R = 128) the R x R dual
-    ext^T (ext ext^T + lambda I)^-1 tgt — both tend to pyESN's min-norm pinv
-    solution as lambda -> 0 (pyESN.py:189-192)."""
+    (rel_jitter * mean diagonal), factored by Cholesky in float64 (where
+    rounding left it indefinite, the batch is solved by the JAX package's
+    Newton-Schulz iteration, `_ns_solver`), and the solution gets one step
+    of iterative refinement against the original operator. Tall systems
+    (F <= R) solve the F x F primal normal equations; wide ones (the
+    flagship: F = 316 > R = 128) the R x R dual ext^T (ext ext^T +
+    lambda I)^-1 tgt — both tend to pyESN's min-norm pinv solution as
+    lambda -> 0 (pyESN.py:189-192)."""
     _, R, F = ext.shape
 
     def factor(A):
@@ -128,7 +158,11 @@ def _readout_lstsq(ext: torch.Tensor, tgt: torch.Tensor,
         tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) / n
         eye = torch.eye(n, dtype=A.dtype, device=A.device)
         A = A + (rel_jitter * tr)[:, None, None] * eye
-        L = torch.linalg.cholesky(A.double())
+        L, info = torch.linalg.cholesky_ex(A.double())
+        if bool(info.any()):
+            # the fp32 Gram is numerically singular, so that rounding left
+            # it indefinite: the JAX package's own solver
+            return _ns_solver(A)
         return lambda b: torch.cholesky_solve(b.double(), L).to(ext.dtype)
 
     extT = ext.transpose(-1, -2)

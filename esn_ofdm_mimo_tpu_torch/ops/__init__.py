@@ -7,8 +7,8 @@ from .qam import (  # noqa: F401
 from .ofdm import ofdm_modulate, ofdm_demodulate, add_cp, remove_cp  # noqa: F401
 from .pa import rapp_pa, clip_amplitude  # noqa: F401
 from .channel import (  # noqa: F401
-    exp_pdp, draw_exp_pdp_taps, draw_tdl_taps, awgn, apply_fir_channel,
-    taps_to_freq_response)
+    exp_pdp, draw_exp_pdp_taps, draw_flat_awgn_tap, draw_tdl_taps, awgn,
+    apply_fir_channel, taps_to_freq_response)
 from .analytics import SvdMetrics, channel_svd_metrics  # noqa: F401
 from .chanest import ls_comb_estimate, mmse_refine_td, estimate_channel  # noqa: F401
 from .equalize import equalizer_weights, apply_equalizer  # noqa: F401

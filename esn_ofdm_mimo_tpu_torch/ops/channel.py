@@ -14,6 +14,8 @@ Port of esn_ofdm_mimo_tpu/ops/channel.py (the main-path subset):
   * exp_pdp, draw_exp_pdp_taps — the one-sided exponential power-delay
     profile (reference OFDM_SISO_NBF_LDPC.py:162-164) and the block-fading
     taps CN(0, pdp) drawn from it (:272-279);
+  * draw_flat_awgn_tap — the flat channel of the SISO-AWGN preset: one
+    unit-magnitude tap of uniform phase per link;
   * awgn — complex noise with the reference's length-scaled std.
 """
 from __future__ import annotations
@@ -83,6 +85,14 @@ def draw_exp_pdp_taps(keys: torch.Tensor, n_rx: int, n_tx: int,
     kri = rng.split(keys)
     return torch.complex(rng.normal(kri[..., 0, :], shape) / _SQRT2 * sqrt_pdp,
                          rng.normal(kri[..., 1, :], shape) / _SQRT2 * sqrt_pdp)
+
+
+def draw_flat_awgn_tap(keys: torch.Tensor, n_rx: int, n_tx: int
+                       ) -> torch.Tensor:
+    """keys (..., 2) -> (..., n_rx, n_tx, 1) complex64 taps exp(j phase),
+    phase ~ U[0, 2 pi) from the key: the JAX package's phases bit for bit."""
+    phase = rng.uniform(keys, (n_rx, n_tx, 1), 0.0, 2 * np.pi)
+    return torch.exp(1j * phase).to(torch.complex64)
 
 
 def awgn(keys: torch.Tensor, shape, noise_psd: float, seq_len: int

@@ -5,7 +5,9 @@ Demo_MIMO_4x8_Sionna_CDL_ESN_v2.py):
   * uncoded BER on every data symbol (:450-456);
   * calibration blocks give (llr, bit) pairs per bit position (:476-482);
     per-bit logistic calibrators p = sigmoid(a*llr + b) are fit by
-    full-batch gradient descent (:105-119, 513-523);
+    full-batch gradient descent (:105-119, 513-523), or under
+    CalibConfig(fit_method="newton") by damped Newton steps on the same
+    penalised likelihood;
   * decode blocks run calibrated LLRs clip(-(a*llr + b), +-clip),
     y_obs = llr/2 and the pyldpc contract snr = 1 (:483-506) through BP.
 
@@ -99,13 +101,54 @@ def fit_logreg_1d(x: torch.Tensor, y: torch.Tensor, steps: int = 400,
     return a, b
 
 
+def fit_logreg_1d_newton(x: torch.Tensor, y: torch.Tensor, steps: int = 8,
+                         l2: float = 1e-3, max_step: float = 8.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The penalised likelihood of `fit_logreg_1d` (l2 on the slope only)
+    minimised by `steps` Newton steps (JAX fit_logreg_1d_newton). Each step
+    solves the 2 x 2 Hessian [[mean(w x^2) + l2, mean(w x)], [mean(w x),
+    mean(w)]], w = p (1 - p), in closed form, clips the step to
+    +-max_step, and keeps the best of the full step and three halvings by
+    penalised NLL (or stays put), so a saturated start backtracks instead
+    of overshooting. x, y (..., S) -> (a, b) of shape (...)."""
+    xf, yf = x.to(torch.float32), y.to(torch.float32)
+    a = torch.ones(x.shape[:-1], dtype=torch.float32, device=x.device)
+    b = torch.zeros_like(a)
+
+    def pnll(a, b):
+        z = a[..., None] * xf + b[..., None]
+        ce = (torch.clamp_min(z, 0.0) - yf * z
+              + torch.log1p(torch.exp(-z.abs())))
+        return ce.mean(-1) + 0.5 * l2 * a * a
+
+    for _ in range(steps):
+        p = torch.sigmoid(a[..., None] * xf + b[..., None])
+        ga = ((p - yf) * xf).mean(-1) + l2 * a
+        gb = (p - yf).mean(-1)
+        w = p * (1.0 - p)
+        haa = (w * xf * xf).mean(-1) + l2
+        hab = (w * xf).mean(-1)
+        hbb = w.mean(-1)
+        det = torch.clamp_min(haa * hbb - hab * hab, 1e-12)
+        da = torch.clamp((hbb * ga - hab * gb) / det, -max_step, max_step)
+        db = torch.clamp((haa * gb - hab * ga) / det, -max_step, max_step)
+        best_a, best_b, best_f = a, b, pnll(a, b)
+        for t in (1.0, 0.5, 0.25, 0.125):
+            ca, cb = a - t * da, b - t * db
+            cf = pnll(ca, cb)
+            take = cf < best_f
+            best_a = torch.where(take, ca, best_a)
+            best_b = torch.where(take, cb, best_b)
+            best_f = torch.minimum(cf, best_f)
+        a, b = best_a, best_b
+    return a, b
+
+
 def fit_calibrators(cfg: SimConfig, cal: dict, bits: torch.Tensor) -> dict:
     """cal: detector -> (S, m) LLRs; bits (S, m) -> detector -> (a, b),
-    each (m,). Above calib.max_fit_samples per bit position a deterministic
-    stride subsample feeds the fit."""
-    if cfg.calib.fit_method != "gd":
-        raise NotImplementedError(
-            f"calibrator fit {cfg.calib.fit_method!r} is not ported yet")
+    each (m,): `fit_logreg_1d_newton` where calib.fit_method is "newton",
+    else `fit_logreg_1d`. Above calib.max_fit_samples per bit position a
+    deterministic stride subsample feeds the fit."""
     cap = cfg.calib.max_fit_samples
     out = {}
     for name, llr in cal.items():
@@ -113,8 +156,11 @@ def fit_calibrators(cfg: SimConfig, cal: dict, bits: torch.Tensor) -> dict:
         if cap is not None and x.shape[-1] > cap:
             stride = -(-x.shape[-1] // int(cap))
             x, y = x[..., ::stride], y[..., ::stride]
-        out[name] = fit_logreg_1d(x, y, steps=cfg.calib.gd_steps,
-                                  lr=cfg.calib.lr, l2=cfg.calib.l2)
+        if cfg.calib.fit_method == "newton":
+            out[name] = fit_logreg_1d_newton(x, y, l2=cfg.calib.l2)
+        else:
+            out[name] = fit_logreg_1d(x, y, steps=cfg.calib.gd_steps,
+                                      lr=cfg.calib.lr, l2=cfg.calib.l2)
     return out
 
 

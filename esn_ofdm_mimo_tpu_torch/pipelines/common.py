@@ -12,9 +12,11 @@ key.
 The link budget (var_x, Pi, sqrt(Pi), A_clip, No/Pi) is evaluated in
 float32, as the JAX package evaluates it with a traced float32 Eb/N0.
 
-Channels: exp_pdp (block fading) and cdl_a/b/c. Detectors: "esn" (matched
-ESN), "esn_fixed" (ESN trained at EsnConfig.train_ebno_fixed_db), "zf_perfect"
-(ZF on the true channel), "zf_ls" (ZF on the LS estimate), "mmse".
+Channels: exp_pdp (block fading), cdl_a/b/c and awgn_flat (the SISO-AWGN
+preset: one unit-magnitude tap of random phase, with its scalar LS estimate
+under ChannelConfig.flat_scalar_ls). Detectors: "esn" (matched ESN),
+"esn_fixed" (ESN trained at EsnConfig.train_ebno_fixed_db), "zf_perfect" (ZF
+on the true channel), "zf_ls" (ZF on the LS estimate), "mmse".
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ from ..ldpc import ldpc_encode
 from ..models.esn import EsnReservoir, EsnScale, init_reservoir, key_seed
 from ..models.esn_mimo import train_mimo_esn, esn_detect_symbols
 from ..ops import (apply_fir_channel, awgn, bits_to_symbols,
-                   draw_exp_pdp_taps, draw_tdl_taps, estimate_channel,
-                   ofdm_demodulate, ofdm_modulate, taps_to_freq_response)
+                   draw_exp_pdp_taps, draw_flat_awgn_tap, draw_tdl_taps,
+                   estimate_channel, ofdm_demodulate, ofdm_modulate,
+                   taps_to_freq_response)
 from ..ops.equalize import apply_equalizer, equalizer_weights
 from ..ops.pa import clip_amplitude, rapp_pa
 from ..utils import rng
@@ -95,23 +98,19 @@ class BlockState(NamedTuple):
 def _check_supported(cfg: SimConfig):
     if cfg.esn.rng_mode != "batch":
         raise NotImplementedError("rng_mode='block' is not ported yet")
-    if cfg.channel.kind not in ("exp_pdp", "cdl_a", "cdl_b", "cdl_c"):
-        raise NotImplementedError(
-            f"channel kind {cfg.channel.kind!r} is not ported yet")
-    if cfg.channel.flat_scalar_ls:
-        raise NotImplementedError("flat_scalar_ls is not ported yet")
-    if not cfg.ldpc.enabled:
-        raise NotImplementedError("uncoded runs (ldpc.enabled=False) are "
-                                  "not ported yet")
 
 
 def _draw_taps(cfg: SimConfig, keys: torch.Tensor) -> torch.Tensor:
     ch, ofdm = cfg.channel, cfg.ofdm
     if ch.kind == "exp_pdp":
         return draw_exp_pdp_taps(keys, ch.n_rx, ch.n_tx, ofdm.isi_duration)
-    return draw_tdl_taps(keys, ch.n_rx, ch.n_tx, ofdm.isi_duration,
-                         ofdm.sample_rate_hz, ch.delay_spread_ns,
-                         profile=ch.kind[-1])
+    if ch.kind in ("cdl_a", "cdl_b", "cdl_c"):
+        return draw_tdl_taps(keys, ch.n_rx, ch.n_tx, ofdm.isi_duration,
+                             ofdm.sample_rate_hz, ch.delay_spread_ns,
+                             profile=ch.kind[-1])
+    if ch.kind == "awgn_flat":
+        return draw_flat_awgn_tap(keys, ch.n_rx, ch.n_tx)
+    raise ValueError(f"unknown channel kind {ch.kind}")
 
 
 def _tx_chain(cfg: SimConfig, X: torch.Tensor, lb: LinkBudget
@@ -133,13 +132,23 @@ def _esn_target(cfg: SimConfig, x_cp, x_clean):
     raise ValueError(f"unknown esn target_waveform {mode!r}")
 
 
-def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
-                ) -> BlockState:
+# the ESN hyperparameters `synth_block`'s esn_over may replace
+ESN_OVERRIDES = ("spectral_radius", "sparsity", "noise", "input_scaler",
+                 "teacher_scaling")
+
+
+def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
+                esn_over: dict | None = None) -> BlockState:
     """Channel draw, pilot synthesis, channel estimation and ESN training
     for B blocks (reference OFDM_SISO_NBF_LDPC.py:270-384). bkeys (B, 2).
     With EsnConfig.train_ebno_fixed_db set, a second ESN is trained on the
     same pilot re-synthesised at that Eb/N0 (:347-357, detector
-    "esn_fixed")."""
+    "esn_fixed").
+
+    esn_over: ESN hyperparameters (keys of ESN_OVERRIDES) that replace the
+    config's, as in the JAX package: the reservoir draw takes the spectral
+    radius, sparsity and noise, both fits the input scaler, the matched fit
+    alone the teacher scaling; the input shift stays the config's."""
     _check_supported(cfg)
     ofdm, esn_cfg, ch = cfg.ofdm, cfg.esn, cfg.channel
     N, cp, isi = ofdm.n_subcarriers, ofdm.cp_len, ofdm.isi_duration
@@ -166,27 +175,40 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
     y_ls_cp = apply_fir_channel(taps, x_ls_cp) + noise
 
     Y_ls = ofdm_demodulate(y_ls_cp, cp)
-    mmse_scaler = _f32(np.float32(ofdm.noise_psd) / np.float32(lb.pi)
-                       / np.float32(N / 2.0))
-    H_ls, H_mmse = estimate_channel(Y_ls, X_ls, lb.sqrt_pi, n_tx, isi,
-                                    mmse_scaler)
+    if ch.flat_scalar_ls:
+        # SISO-AWGN demo: one LS estimate averaged over the subcarriers, and
+        # MMSE on the true channel (Demo_SISO...:213-216, 260-266)
+        h = (Y_ls / (X_p * lb.sqrt_pi)).mean(-1)                # (B, n_rx)
+        H_ls = h[:, None, :, None].expand(H_true.shape).to(H_true.dtype)
+        H_mmse = H_true
+    else:
+        mmse_scaler = _f32(np.float32(ofdm.noise_psd) / np.float32(lb.pi)
+                           / np.float32(N / 2.0))
+        H_ls, H_mmse = estimate_channel(Y_ls, X_ls, lb.sqrt_pi, n_tx, isi,
+                                        mmse_scaler)
 
+    ov = esn_over or {}
+    unknown = set(ov) - set(ESN_OVERRIDES)
+    if unknown:
+        raise ValueError(f"unknown ESN overrides {sorted(unknown)}")
+    hyper = {k: float(ov.get(k, getattr(esn_cfg, k))) for k in ESN_OVERRIDES}
     res = init_reservoir(rng.fold_in(bkeys[0], _K_RESERVOIR), 2 * n_rx,
                          2 * n_tx, esn_cfg.n_reservoir,
-                         esn_cfg.spectral_radius, esn_cfg.sparsity,
-                         esn_cfg.noise)
+                         hyper["spectral_radius"], hyper["sparsity"],
+                         hyper["noise"])
     delay = esn_cfg.shared_delay(isi)
 
-    def fit(budget, y, x, tag):
+    def fit(budget, y, x, tag, teacher_scaling):
         scale = EsnScale(
-            input_scaling=_f32(np.float32(esn_cfg.input_scaler)
+            input_scaling=_f32(np.float32(hyper["input_scaler"])
                                / np.sqrt(np.float32(budget.var_x))),
             input_shift=_f32(esn_cfg.input_offset / esn_cfg.input_scaler),
-            teacher_scaling=_f32(esn_cfg.teacher_scaling))
+            teacher_scaling=_f32(teacher_scaling))
         seed = key_seed(rng.fold_in(bkeys[0], tag))
         return scale, train_mimo_esn(res, scale, y, x, delay, cp, seed)
 
-    scale_m, Wt_out_m = fit(lb, y_cp, x_tgt, _K_ESNFIT)
+    scale_m, Wt_out_m = fit(lb, y_cp, x_tgt, _K_ESNFIT,
+                            hyper["teacher_scaling"])
     scale_f = Wt_out_f = None
     if esn_cfg.train_ebno_fixed_db is not None:
         # the same pilot and channel, re-synthesised at the fixed training
@@ -197,7 +219,7 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
             rng.fold_in(bkeys, _K_PNOISE_F), (n_rx, T), ofdm.noise_psd, T)
         scale_f, Wt_out_f = fit(lb_f, y_cp_f,
                                 _esn_target(cfg, x_cp_f, x_clean_f),
-                                _K_ESNFIT_F)
+                                _K_ESNFIT_F, esn_cfg.teacher_scaling)
     return BlockState(taps=taps, H_true=H_true, H_ls=H_ls, H_mmse=H_mmse,
                       reservoir=res, scale_m=scale_m, scale_f=scale_f,
                       Wt_out_m=Wt_out_m, Wt_out_f=Wt_out_f)
@@ -266,9 +288,14 @@ def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
 
 
 def data_bits_for_blocks(cfg: SimConfig, bkeys: torch.Tensor, n_data: int,
-                         code):
+                         code=None):
     """Info bits per block, LDPC-encoded: -> (code_bits (B, D, n_tx, n),
-    info_bits (B, D, n_tx, k)) int8."""
-    u = _vbits(rng.fold_in(bkeys, _K_DBITS),
-               (n_data, cfg.channel.n_tx, code.k))
+    info_bits (B, D, n_tx, k)) int8. With no code the raw bits fill the
+    symbols: -> (bits (B, D, n_tx, N*m), None)."""
+    keys = rng.fold_in(bkeys, _K_DBITS)
+    n_tx = cfg.channel.n_tx
+    if code is None:
+        return _vbits(keys, (n_data, n_tx, cfg.ofdm.n_subcarriers
+                             * cfg.ofdm.bits_per_symbol)), None
+    u = _vbits(keys, (n_data, n_tx, code.k))
     return ldpc_encode(code, u), u

@@ -522,24 +522,69 @@ def test_cli_cdl_preset_on_cpu(tmp_path):
     assert any("single 1-block round" in m for m in msgs)
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["--preset", "siso_nbf", "--ldpc-family", "gallager"], "gallager"),
-    (["--preset", "siso_nbf", "--ldpc-family", "pyldpc"], "pyldpc"),
-    (["--preset", "siso_nbf", "--channel-kind", "awgn_flat"], "awgn_flat"),
-    (["--preset", "siso_qpsk_awgn"], "awgn_flat"),
-])
-def test_cli_refuses_what_is_not_ported(argv, what, tmp_path):
-    with pytest.raises(NotImplementedError, match=what):
-        cli.main(argv + ["--device", "cpu", "--fast", "--outdir",
-                         str(tmp_path)])
-    assert not any(tmp_path.iterdir())              # refused before any run
+CLASSICAL = ("mmse", "zf_ls", "zf_perfect")
+
+
+@pytest.mark.parametrize("argv,ebno", [
+    (["--preset", "siso_nbf", "--ldpc-family", "gallager"], "24"),
+    (["--preset", "siso_nbf", "--ldpc-family", "pyldpc"], "24"),
+    (["--preset", "siso_nbf", "--channel-kind", "awgn_flat"], "24"),
+    (["--preset", "siso_qpsk_awgn"], "12"),
+], ids=["gallager", "pyldpc", "awgn_flat", "siso_qpsk_awgn"])
+def test_cli_refuses_what_is_not_ported(argv, ebno, tmp_path,
+                                       monkeypatch):
+    """The paths the CLI refused before they were ported (two code
+    families, the flat AWGN channel, the SISO-AWGN preset) now run: the
+    port's CLI and the JAX package's on the same arguments (--fast, one
+    block, one SNR) write the same CSV header; the classical detectors'
+    uncoded BERs are equal, their coded BERs equal where the JAX run's is
+    0 (every codeword converges) and else within 0.02 (sum-product BP that
+    never converges ends on bits that LLRs differing by ulps move: a
+    Gallager/pyldpc codeword is 1/5 of the info bits here). The ESN columns
+    lie within 25% + 0.002: the preset's state noise 1e-3 comes from
+    another stream in each package, and one block's ESN BER moves by that
+    much with it (measured 0.3-21% apart). The JAX CLI runs on a
+    one-device mesh, so that its rounds hold the port's one block."""
+    from esn_ofdm_mimo_tpu.experiments import run as jrun
+    monkeypatch.setattr(jrun, "trials_mesh", lambda: Mesh(
+        np.array(jax.devices()[:1]), ("trials",)))
+    common = argv + ["--fast", "--blocks-per-snr", "1",
+                     "--blocks-per-device", "1", "--ebno-list", ebno]
+    cli.main(common + ["--device", "cpu", "--outdir", str(tmp_path / "t")])
+    jrun.main(common + ["--outdir", str(tmp_path / "j")])
+    rows = {}
+    for k in ("t", "j"):
+        lines = (tmp_path / k / "results_ber.csv").read_text().splitlines()
+        rows[k] = (lines[0].split(","),
+                   [float(x) for x in lines[1].split(",")])
+        assert len(lines) == 2
+        assert {"results_ber.pkl", "events.jsonl", "channel_metrics_1x1.pkl"
+                } <= {p.name for p in (tmp_path / k).iterdir()}
+    (head, got), (head_j, want) = rows["t"], rows["j"]
+    assert head == head_j and got[0] == want[0] == float(ebno)
+    for col, g, w in zip(head[1:], got[1:], want[1:]):
+        det, kind = col.rsplit("_", 1)
+        assert 0.0 <= g < 0.5, col
+        if det in CLASSICAL and kind == "uncoded":
+            assert g == w, col
+        elif det in CLASSICAL:
+            assert (g == w) if w == 0.0 else abs(g - w) <= 0.02, (col, g, w)
+        else:
+            assert abs(g - w) <= 0.25 * w + 0.002, (col, g, w)
+    assert 0.0 < got[head.index("mmse_uncoded")] < 0.5
 
 
 def test_cli_refusals_uncoded_qam_bits_and_missing_gpu(tmp_path):
+    # an uncoded config runs (it was refused before uncoded runs were
+    # ported): uncoded BERs, coded BERs and BP telemetry 0
     cfg = dataclasses.replace(
         _nbf_cfg(), ldpc=dataclasses.replace(_nbf_cfg().ldpc, enabled=False))
-    with pytest.raises(NotImplementedError, match="ldpc.enabled=False"):
-        cli._check_ported(cfg)
+    res = run_nbf_curve(cfg, 2, 2, device="cpu", progress=None)
+    assert res.total_info_bits.tolist() == [0, 0]
+    for d in res.ber:
+        assert np.all((res.ber[d] > 0) & (res.ber[d] < 0.5)), d
+        assert not np.any(res.ber_coded[d]), d
+        assert not np.any(res.ldpc_avg_iters[d]), d
     with pytest.raises(SystemExit):
         cli.main(["--preset", "siso_nbf", "--qam-bits", "3"])
     if not torch.cuda.is_available():
