@@ -55,9 +55,10 @@ nvcc per source, all started together; sm_90a), then:
      the same function at noise 0, its ms and its error against plain (the
      port never calls it; its ms is K3's library_ms); [K3 ragged] 100, 9 and
      300 rows at the NBF fit shape; [K3 siso 1 row / 16 rows] the
-     siso_qpsk_awgn fit (512 x 200, n_in = n_out = 2) and [K3 sweep n_res
-     50 / 600] the sweep's fits (16 x 522, n_in = n_out = 4), noise 0, with
-     the plan, ms, plain ms and bound;
+     siso_qpsk_awgn fit (512 x 200, n_in = n_out = 2), [K3 sweep n_res
+     50 / 600] the sweep's fits (16 x 522, n_in = n_out = 4) and [K3
+     classify sm2 2 rows] the classify CLI's sm2 fit (2 x 138 x 300, n_in
+     16, n_out 8), noise 0, with the plan, ms, plain ms and bound;
   5. K4, the grouped-readout predict (csrc/esn_predict_grouped.cu), against
      plain grouped esn_predict and against K2 at the flagship detect shape,
      [K4-nbf] the same at the mimo_4x8_nbf detect shape (3 slots a block);
@@ -119,7 +120,24 @@ nvcc per source, all started together; sm_90a), then:
        [sweep] experiments.sweep.main --param reservoir and spectral, 16
        blocks of mimo_2x2_nbf at 12 dB: K2 once and K3 twice a value, every
        BER in (0, 0.5), the JSON written; run_sweep at 2 blocks and noise 0
-       on the card against the CPU within 1% + 10 bit errors a value.
+       on the card against the CPU within 1% + 10 bit errors a value;
+       [classify sm1] the classify CLI, esn_ofdm_mimo_tpu_torch.experiments.
+       classify.main, at --fast --batch 64 --variant wide (system model 1
+       at full width: 5G grid of 64 x 14 REs, 4 x 8 spatial CDL-B, NR LDPC
+       k = 1,536 / E = 3,072, 196,608 symbols an SNR at 0, 10 and 20 dB,
+       the wide zoo, 60 epochs): no kernel launched; the traditional
+       demapper's SER in (0.010, 0.028) at 10 dB and (0.33, 0.43) at 0
+       dB, the ELM within 0.01 of it at 10 dB, every model below 0.5 at 20
+       dB, the parameter counts exact, E|z|^2 within 0.05 of 1 on the 10
+       dB dataset; the wall, peak device memory and each phase's ms per
+       SNR (the dataset's steps, the split, each model), and the RNG draws
+       timed alone;
+       [classify sm1 cpu] the sm1 dataset at batch 2 on the card and on the
+       CPU from one key at 0, 10 and 20 dB: labels identical, features
+       within 1e-4;
+       [classify sm2] the CLI at --frontend sm2 --fast (mimo_4x8_cdl at full
+       width, 2 blocks an SNR): K3 launched, SERs printed; the CLI's
+       [warn] lines (the best-effort PNG step) are passed on to the log.
      No QC path may reach the graph decoder (its count stays 0);
   8. one JSON line listing the kernels (launches on the main paths, error
      against the plain version, times, bound: the largest of bytes over the
@@ -871,6 +889,9 @@ def main() -> None:
     for n_res_w in (50, 600):
         k3_shape(with_reservoir(nbf2, n_res_w), 16, f"sweep n_res {n_res_w}",
                  15)
+    # the classify CLI's sm2 frontend: the flagship ESN fit on its 2 blocks
+    # an SNR
+    k3_shape(cfg, 2, "classify sm2 2 rows", 16)
 
     # ---- 5. K4: grouped-readout predict vs plain and K2 ---------------------
     pg = esn_cuda.esn_predict_cuda(res, scale, Wt_out, inputs, n_forget, 0,
@@ -1642,6 +1663,121 @@ def main() -> None:
                  f"results/esn_sweeps: {sw_jax}) | wall {1e3 * wall_w:.1f} "
                  f"ms | launches {la_w} | 2 blocks at noise 0, bit errors "
                  f"cuda - cpu {flips}")
+
+        # ---- the classify CLI (system model 1) at full width --------------
+        # no kernel on the sm1 path: the dataset, the LMMSE solve and the
+        # zoo's training are PyTorch library calls; the sm2 frontend's ESN
+        # fit runs K3
+        from esn_ofdm_mimo_tpu_torch.experiments import classify as clf_cli
+        from esn_ofdm_mimo_tpu_torch.pipelines import classification as \
+            clf_pipe
+
+        def classify_run(argv, need, what):
+            out = os.path.join(tmp, what.replace(" ", "_"))
+            torch.cuda.reset_peak_memory_stats()
+            with contextlib.redirect_stdout(io.StringIO()) as so:
+                _, _, wall_c, la_c = count_run(
+                    lambda ph: clf_cli.main(argv + ["--outdir", out]), need,
+                    what)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            with open(os.path.join(out, "model_results.pkl"), "rb") as f:
+                mr = pickle.load(f)
+            with open(os.path.join(out, "events.jsonl")) as f:
+                ev = [json.loads(line) for line in f]
+            res_c = mr["results"]
+            ser_c = {e: {m: r["ser"] for m, r in res_c[e].items()}
+                     for e in res_c}
+            _check(sorted(res_c) == [0.0, 10.0, 20.0]
+                   and all(0.0 <= v <= 1.0 for r in ser_c.values()
+                           for v in r.values())
+                   and all(os.path.exists(os.path.join(out, a)) for a in
+                           ("ser_vs_snr.pkl", "ber_vs_snr.pkl")),
+                   f"{what}: artifacts or SERs out of range: {ser_c}")
+            _log(f"[{what}] CLI {' '.join(argv)}: wall {1e3 * wall_c:.1f} "
+                 f"ms | peak device memory {peak:.2f} GiB | launches "
+                 f"{la_c}")
+            # the CLI's warnings (the best-effort PNG step says so there)
+            for line in so.getvalue().splitlines():
+                if line.startswith("[warn]"):
+                    _log(f"[{what}] CLI {line}")
+            for e in sorted(ser_c):
+                _log(f"[{what}] SER {e:g} dB: " + " ".join(
+                    f"{m} {v:.5f}" for m, v in sorted(ser_c[e].items())))
+            for rec in ev:
+                if rec["event"] == "snr_done":
+                    _log(f"[{what}] ms at {rec['ebno_db']:g} dB: "
+                         + " ".join(f"{k} {v:.1f}"
+                                    for k, v in rec["ms"].items()))
+            return mr, ser_c, la_c, so.getvalue()
+
+        # [classify sm1]: --fast at the reference's batch 64 (196,608
+        # symbols an SNR), the wide zoo, 60 epochs; gates from the
+        # reference's anchors (tests/test_sm1.py's windows)
+        mr1, ser1, la1, out1 = classify_run(
+            ["--fast", "--batch", "64", "--variant", "wide"], (),
+            "classify sm1")
+        _check(not any(la1.values()) and "Trainable parameters" in out1,
+               f"classify sm1: launches {la1} on a path with no kernel, or "
+               f"no printed tables")
+        want_params = {"esn": 9616, "deep_esn": 370216, "fnn": 11416,
+                       "cnn": 180584, "rnn": 732016, "elm": 9600}
+        got_params = {m: mr1["results"][0.0][m]["params"]
+                      for m in want_params}
+        _check(got_params == want_params,
+               f"classify sm1: parameter counts {got_params}")
+        _check(mr1["meta"]["nr_basegraph_fingerprint"] == "6e0522b9a8ebd5de",
+               f"classify sm1: meta {mr1['meta']}")
+        trad = {e: ser1[e]["traditional"] for e in ser1}
+        _check(0.010 < trad[10.0] < 0.028 and 0.33 < trad[0.0] < 0.43,
+               f"classify sm1: traditional SER {trad} outside (0.010, "
+               f"0.028) at 10 dB or (0.33, 0.43) at 0 dB")
+        _check(abs(ser1[10.0]["elm"] - trad[10.0]) <= 0.01,
+               f"classify sm1: ELM {ser1[10.0]['elm']} against traditional "
+               f"{trad[10.0]} at 10 dB")
+        _check(all(v < 0.5 for v in ser1[20.0].values()),
+               f"classify sm1: a model at or above SER 0.5 at 20 dB: "
+               f"{ser1[20.0]}")
+        # the CLI's 10 dB dataset again (its key: fold_key(root, 55, 1)):
+        # E|z|^2 of the unbiased LMMSE output, the build's steps warm, and
+        # the two RNG draws that dominate it, timed alone
+        key10 = rng.fold_key(rng.prng_key(0, dev), 55, 1)
+        ph_ds = {}
+        ds10 = clf_pipe.make_equalized_dataset_sm1(10.0, key10, batch=64,
+                                                   timings=ph_ds)
+        ez2 = float((ds10.x.double() ** 2).sum(-1).mean())
+        _check(abs(ez2 - 1.0) < 0.05, f"classify sm1: E|z|^2 = {ez2}")
+        kb, _, _, kn = rng.split(key10, 4)
+        ms_bits = cuda_ms(lambda: rng.randint(kb, (64, 4, 1536), 0, 2), 5)
+        ms_noise = cuda_ms(lambda: rng.normal(kn, (2, 64, 14, 64, 8)), 5)
+        _log(f"[classify sm1] 10 dB dataset (warm, {ds10.x.shape[0]} "
+             f"symbols): E|z|^2 {ez2:.4f} | ms " + " ".join(
+                 f"{k} {v:.2f}" for k, v in ph_ds.items())
+             + f" | RNG alone: randint {ms_bits:.3f} ms (2 x 393,216 bit "
+             f"draws), normal {ms_noise:.3f} ms (917,504) | LMMSE "
+             f"{64 * 14 * 64} systems of 4 x 4")
+
+        # [classify sm1 cpu]: the dataset at batch 2 on the card and on the
+        # CPU from the same key: labels identical, features within 1e-4
+        for e_c in (0.0, 10.0, 20.0):
+            k_c = rng.fold_key(rng.prng_key(0), 55, int(e_c))
+            dg = clf_pipe.make_equalized_dataset_sm1(e_c, k_c.to(dev),
+                                                     batch=2)
+            dc = clf_pipe.make_equalized_dataset_sm1(e_c, k_c, batch=2)
+            err_c = float((dg.x.cpu() - dc.x).abs().max())
+            _check(torch.equal(dg.labels.cpu(), dc.labels),
+                   f"classify sm1 cpu: labels differ at {e_c} dB")
+            _check(err_c <= 1e-4, f"classify sm1 cpu: features differ by "
+                   f"{err_c} at {e_c} dB")
+            _log(f"[classify sm1 cpu] {e_c:g} dB, batch 2 "
+                 f"({dc.x.shape[0]} symbols): labels identical, features "
+                 f"max abs error {err_c:.3e} (tolerance 1e-4)")
+
+        # [classify sm2]: the framework's own CDL link at full width
+        # (mimo_4x8_cdl, 2 blocks an SNR): K3 fits the ESN of every block
+        _, ser2, _, _ = classify_run(["--frontend", "sm2", "--fast"],
+                                     ("esn_states",), "classify sm2")
+        _check(ser2[20.0]["traditional"] < 0.5,
+               f"classify sm2: traditional SER {ser2[20.0]} at 20 dB")
 
     if "--profile" in sys.argv[1:]:
         _profile_main_path(

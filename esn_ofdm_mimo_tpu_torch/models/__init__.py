@@ -1,6 +1,7 @@
 """ESN engine (plain PyTorch), its CUDA predict and state-harvest kernels,
-and the MIMO detection harness. The state-harvest wrapper is
-`models.esn_states_cuda.esn_states_cuda` (the module keeps its launch
+the MIMO detection harness, and the learners of system model 1 (models.elm,
+models.zoo, models.classifiers; plain PyTorch). The state-harvest wrapper
+is `models.esn_states_cuda.esn_states_cuda` (the module keeps its launch
 count)."""
 
 from .esn import (EsnReservoir, EsnScale, init_reservoir,  # noqa: F401

@@ -3,7 +3,9 @@ esn_ofdm_mimo_tpu/ops, the main-path subset)."""
 
 from .qam import (  # noqa: F401
     qam_constellation, qam_bit_labels, pam_axis_points, bits_to_symbols,
-    hard_demap_index, symbols_to_bits_hard)
+    hard_demap_index, symbols_to_bits_hard, qam_constellation_gray,
+    qam_bit_labels_msb, bits_to_index_msb, bits_to_symbols_gray,
+    hard_demap_index_gray)
 from .ofdm import ofdm_modulate, ofdm_demodulate, add_cp, remove_cp  # noqa: F401
 from .pa import rapp_pa, clip_amplitude  # noqa: F401
 from .channel import (  # noqa: F401

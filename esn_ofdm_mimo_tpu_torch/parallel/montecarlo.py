@@ -33,7 +33,6 @@ are pure functions of their keys, so a retry is exact.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -46,7 +45,7 @@ from ..pipelines.cdl import (CDL_DETECTORS, CdlCounts, cdl_decode_counters,
                              run_cdl_detect_llrs)
 from ..utils import rng
 from ..utils.device import resolve_device
-from ..utils.metrics import check_finite
+from ..utils.metrics import PhaseClock, check_finite
 
 
 class CdlSnrPoint(NamedTuple):
@@ -55,26 +54,6 @@ class CdlSnrPoint(NamedTuple):
     counts: CdlCounts          # decode rounds: uncoded + coded counters, BP
     #                            telemetry (iteration sum, unconverged)
     calib: dict                # detector -> (a (m,), b (m,)) calibrators
-
-
-class _PhaseClock:
-    """Wall time per phase, in ms, synchronising the device at each mark."""
-
-    def __init__(self, dev: torch.device, out):
-        self.dev, self.out = dev, out
-        self.t = self._now() if out is not None else 0.0
-
-    def _now(self):
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        return time.perf_counter()
-
-    def mark(self, name: str):
-        if self.out is None:
-            return
-        t = self._now()
-        self.out[name] = self.out.get(name, 0.0) + 1e3 * (t - self.t)
-        self.t = t
 
 
 def cdl_snr_point(cfg: SimConfig, ebno_db: float, cal_keys, dec_keys,
@@ -91,7 +70,7 @@ def cdl_snr_point(cfg: SimConfig, ebno_db: float, cal_keys, dec_keys,
     cal_keys = rng.as_keys(cal_keys, dev)
     dec_keys = rng.as_keys(dec_keys, dev)
     m = cfg.ofdm.bits_per_symbol
-    clock = _PhaseClock(dev, timings)
+    clock = PhaseClock(dev, timings)
 
     cal_errs = {d: 0 for d in CDL_DETECTORS}
     cal_bits, llrs, bits = 0, {d: [] for d in CDL_DETECTORS}, []
@@ -119,7 +98,7 @@ def _ints(dct: dict) -> dict:
 
 
 def _cdl_decode_rounds(cfg: SimConfig, ebno_db: float, dec_keys, calib: dict,
-                       clock: _PhaseClock) -> CdlCounts:
+                       clock: PhaseClock) -> CdlCounts:
     """Detection per round of dec_keys (Rd, G, 2), one BP decode of the
     round-stacked LLRs; CdlCounts of Python ints."""
     dec_errs = {d: 0 for d in CDL_DETECTORS}
@@ -154,7 +133,7 @@ def cdl_decode_rounds(cfg: SimConfig, ebno_db: float, dec_keys, calib: dict,
     calib = {d: tuple(torch.as_tensor(x, dtype=torch.float32, device=dev)
                       for x in ab) for d, ab in calib.items()}
     return _cdl_decode_rounds(cfg, ebno_db, rng.as_keys(dec_keys, dev), calib,
-                              _PhaseClock(dev, timings))
+                              PhaseClock(dev, timings))
 
 
 def _add_counts(a, b):
@@ -184,7 +163,7 @@ def nbf_snr_point(cfg: SimConfig, ebno_db: float, keys, device=None,
     histogram as an int64 numpy array."""
     dev = resolve_device(device)
     keys = rng.as_keys(keys, dev)
-    clock = _PhaseClock(dev, timings)
+    clock = PhaseClock(dev, timings)
     acc = None
     for bkeys in keys:
         c = run_nbf_blocks(cfg, ebno_db, bkeys, mark=clock.mark)

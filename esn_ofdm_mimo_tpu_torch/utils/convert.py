@@ -1,17 +1,24 @@
 """Carry parameters across from the JAX package as numpy arrays.
 
 The port imports nothing of the JAX package, so weights cross as plain numpy
-data: a dict of the `EsnReservoir` / `EsnScale` fields, a readout array, and
-the `LdpcCode` / `QcInfo` fields. These helpers turn them into the port's
-types on a given device, so both packages can compute on identical
-parameters (the parity tests do exactly that).
+data: a dict of the `EsnReservoir` / `EsnScale` fields, a readout array,
+the `LdpcCode` / `QcInfo` and `NrCode` fields, and the classifier zoo's
+parameter trees. These helpers turn them into the port's types on a given
+device, so both packages can compute on identical parameters (the parity
+tests do exactly that).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from torch import nn
+
 from ..ldpc.code import LdpcCode, QcInfo
+from ..ldpc.nr import NrCode
+from ..models import classifiers as clf
+from ..models import zoo
+from ..models.elm import ElmParams
 from ..models.esn import EsnReservoir, EsnScale
 
 
@@ -49,3 +56,53 @@ def ldpc_code(d: dict) -> LdpcCode:
     ints = {k: int(d[k]) for k in ("n", "k", "m", "dv", "dc")}
     arrays = {k: np.asarray(d[k]) for k in ("H", "P", "ck_cols", "var_edge")}
     return LdpcCode(**ints, **arrays, qc=qc)
+
+
+def nr_code(d: dict) -> NrCode:
+    """NrCode fields -> the port's NrCode (arrays stay numpy, H_rows a
+    tuple of (i, j, shift) int triples)."""
+    ints = {k: int(d[k]) for k in ("k", "E", "bg", "Z", "iLS", "kb", "K",
+                                   "F", "m_b", "n_b")}
+    return NrCode(**ints, M=np.asarray(d["M"]), sel=np.asarray(d["sel"]),
+                  H_rows=tuple(tuple(int(v) for v in r) for r in d["H_rows"]))
+
+
+def _dense(d: dict, device) -> zoo.Dense:
+    return zoo.Dense(tensor(d["w"], device), tensor(d["b"], device))
+
+
+def _mlp(layers, device) -> nn.ModuleList:
+    return nn.ModuleList([_dense(lyr, device) for lyr in layers])
+
+
+def classifier(name: str, tree, device=None):
+    """One classifier's JAX parameters (numpy leaves; a NamedTuple as its
+    `_asdict()`) -> the port's parameters for the matching apply:
+      esn       {"W_in", "W_out", "b_out"} -> the training tree (W_in a
+                buffer)
+      deep_esn  {"W_in", "hidden": [{"w", "b"}, ...]} -> the training tree
+      fnn       [{"w", "b"}, ...]           -> nn.ModuleList of Dense
+      cnn       {"c1", "c2": {"w", "b"}, "mlp": [...]} -> zoo.Params
+      rnn       {"wx", "wh", "b", "mlp": [...]} -> zoo.Params
+      elm       {"W1", "b1", "W2"}          -> ElmParams"""
+    def t(k):
+        return tensor(tree[k], device)
+
+    if name == "esn":
+        return clf.esn_classifier_params(
+            clf.EsnClassifierParams(t("W_in"), t("W_out"), t("b_out")))
+    if name == "deep_esn":
+        return clf.deep_esn_params(
+            clf.DeepEsnParams(t("W_in"), _mlp(tree["hidden"], device)))
+    if name == "fnn":
+        return _mlp(tree, device)
+    if name == "cnn":
+        return zoo.Params({"c1": _dense(tree["c1"], device),
+                           "c2": _dense(tree["c2"], device),
+                           "mlp": _mlp(tree["mlp"], device)})
+    if name == "rnn":
+        return zoo.Params({"wx": t("wx"), "wh": t("wh"), "b": t("b"),
+                           "mlp": _mlp(tree["mlp"], device)})
+    if name == "elm":
+        return ElmParams(t("W1"), t("b1"), t("W2"))
+    raise ValueError(f"unknown classifier {name!r}")

@@ -9,10 +9,12 @@ esn_ofdm_mimo_tpu/utils/metrics.py).
     Chrome trace format;
   * `debug_nan_checks` is the counterpart of `jax_debug_nans`. PyTorch has
     no switch that checks every forward result (`set_detect_anomaly` only
-    covers autograd, which this package does not use), so the guard is a
-    check the curve runners call on what feeds their counters: inside the
-    context `check_finite` raises FloatingPointError at the first tensor
-    holding a NaN or an infinity, outside it is free.
+    covers autograd, which only the classifier zoo's training uses), so the
+    guard is a check the curve runners call on what feeds their counters:
+    inside the context `check_finite` raises FloatingPointError at the
+    first tensor holding a NaN or an infinity, outside it is free;
+  * `PhaseClock` sums wall ms per named phase into a dict, synchronising
+    the card at each mark.
 """
 from __future__ import annotations
 
@@ -23,6 +25,27 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
+
+
+class PhaseClock:
+    """Wall time per phase, in ms, synchronising the device at each mark;
+    with `out` None it does nothing."""
+
+    def __init__(self, dev: torch.device, out):
+        self.dev, self.out = dev, out
+        self.t = self._now() if out is not None else 0.0
+
+    def _now(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        return time.perf_counter()
+
+    def mark(self, name: str):
+        if self.out is None:
+            return
+        t = self._now()
+        self.out[name] = self.out.get(name, 0.0) + 1e3 * (t - self.t)
+        self.t = t
 
 
 class MetricsLogger:

@@ -11,15 +11,20 @@ and data bits, AWGN and reservoir as the JAX package at the same keys:
   fold_in      threefry(key, (0, data))                       — both words
   split(k, n)  threefry(key, (0, i)) for i < n                — both words
   bits         threefry(key, (hi(i), lo(i))) word0 ^ word1, i the flat index
-  uniform      JAX's mantissa trick: (bits >> 9) | 0x3F800000 as f32, minus 1
+  uniform      JAX's mantissa trick: (bits >> 9) | 0x3F800000 as f32, minus 1,
+               then fma(u, span, lo) as XLA fuses it
   normal       sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))
   bernoulli    uniform < p
+  randint      two bit draws from split(key): (hi % span * (2^16 % span)^2
+               + lo % span) % span, in wrapping uint32 arithmetic
+  permutation  ceil(3 ln n / ln(2^32 - 1)) rounds of a stable sort of
+               arange(n) by 32 fresh bits, each round on split(key)[1]
 
-Integers, bits, uniforms and bernoulli draws are bit-exact against
-`jax.random`. Normals use XLA's erfinv polynomial and differ from JAX's in
-a few percent of draws, by at most a few ulp. uint32 words live in int64 tensors (torch has no
-full-width uint32 arithmetic), masked back to 32 bits after every add and
-shift.
+Integers, bits, uniforms, bernoulli draws, randint and permutations are
+bit-exact against `jax.random`. Normals use XLA's erfinv polynomial and
+differ from JAX's in a few percent of draws, by at most a few ulp. uint32
+words live in int64 tensors (torch has no full-width uint32 arithmetic),
+masked back to 32 bits after every add and shift.
 
 Everything broadcasts over leading key axes: a (B, 2) batch of block keys
 draws (B, *shape) in one call — the batch dimension that `jax.vmap` was.
@@ -118,7 +123,9 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     floats = fbits.view(torch.float32) - 1.0
     lo = np.float32(minval)
     span = np.float32(maxval) - lo
-    out = floats * float(span) + float(lo)
+    # XLA fuses floats * span + lo into one fused multiply-add: the exact
+    # product (48 bits) plus lo in float64, rounded once to float32
+    out = (floats.double() * float(span) + float(lo)).float()
     return torch.clamp_min(out, float(lo))
 
 
@@ -158,3 +165,30 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
 def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
     """jax.random.bernoulli (mode 'low'): uniform < p, as bool."""
     return uniform(key, shape) < float(np.float32(p))
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """jax.random.randint for 32-bit integers (jax/_src/random.py:_randint):
+    U{minval, ..., maxval - 1} as int64, spans up to 2^31."""
+    span = int(maxval) - int(minval)
+    if not 0 < span < 2 ** 31:
+        raise ValueError(f"randint span {span} outside (0, 2^31)")
+    k = split(key)
+    hi = random_bits(k[..., 0, :], shape)
+    lo = random_bits(k[..., 1, :], shape)
+    mult = ((1 << 16) % span) ** 2 % span
+    off = ((((hi % span) * mult) & _MASK) + lo % span) & _MASK
+    return off % span + int(minval)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.random.permutation(key, n) for one (2,) key (_shuffle): rounds
+    of a stable sort of arange(n) by fresh 32-bit keys; int64 (n,)."""
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[torch.argsort(random_bits(sub, (n,)), stable=True)]
+    return x

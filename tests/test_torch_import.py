@@ -29,7 +29,15 @@ def test_port_imports_with_jax_blocked():
             "esn_ofdm_mimo_tpu_torch.experiments.run, "
             "esn_ofdm_mimo_tpu_torch.utils.checkpoint, "
             "esn_ofdm_mimo_tpu_torch.utils.metrics, "
-            "esn_ofdm_mimo_tpu_torch.utils.reporting\n"
+            "esn_ofdm_mimo_tpu_torch.utils.reporting, "
+            "esn_ofdm_mimo_tpu_torch.ldpc.nr, "
+            "esn_ofdm_mimo_tpu_torch.ops.linalg, "
+            "esn_ofdm_mimo_tpu_torch.sm1, "
+            "esn_ofdm_mimo_tpu_torch.models.elm, "
+            "esn_ofdm_mimo_tpu_torch.models.zoo, "
+            "esn_ofdm_mimo_tpu_torch.models.classifiers, "
+            "esn_ofdm_mimo_tpu_torch.pipelines.classification, "
+            "esn_ofdm_mimo_tpu_torch.experiments.classify\n"
             "import runpy\n"
             "runpy.run_path('tools/bench_micro_torch.py', run_name='tool')\n"
             "import torch\n"

@@ -1,6 +1,8 @@
 """The port's threefry2x32 stream against jax.random (partitionable mode,
-the JAX 0.9 default): keys, bits, uniforms and bernoulli draws bit-exact,
-normals within a few ulp (the two erfinv evaluations round differently)."""
+the JAX 0.9 default): keys, bits, uniforms (spans that are not powers of
+two too, where XLA fuses the scale and shift), bernoulli draws, randint
+and permutation bit-exact, normals within a few ulp (the two erfinv
+evaluations round differently)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -70,7 +72,9 @@ def test_random_bits(shape):
     np.testing.assert_array_equal(got, want.astype(np.int64))
 
 
-@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.5, 0.5), (-1.0, 1.0)])
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.5, 0.5), (-1.0, 1.0),
+                                   (-0.1, 0.1), (-np.pi, np.pi),
+                                   (0.0, 2 * np.pi)])
 def test_uniform(lo, hi):
     k = _keys(4)
     want = jax.vmap(lambda q: jax.random.uniform(q, (13, 6), minval=lo,
@@ -93,3 +97,23 @@ def test_normal_within_ulps(seed):
     want = np.asarray(jax.vmap(lambda q: jax.random.normal(q, (4, 500)))(k))
     got = rng.normal(rng.as_keys(np.asarray(k)), (4, 500)).numpy()
     assert _ulp_dist(got, want).max() <= NORMAL_MAX_ULP
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 2), (0, 4), (0, 16), (0, 1000),
+                                   (-3, 9)])
+def test_randint(lo, hi):
+    k = _keys(6)
+    want = jax.vmap(lambda q: jax.random.randint(q, (5, 77), lo, hi))(k)
+    got = rng.randint(rng.as_keys(np.asarray(k)), (5, 77), lo, hi)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [10, 1000, 200_000])
+def test_permutation(n):
+    """Two sort rounds at n = 200,000, with ~5 colliding 32-bit sort keys a
+    round: the stable sort keeps them in JAX's order."""
+    for seed in (0, 7):
+        k = jax.random.PRNGKey(seed)
+        got = rng.permutation(rng.as_keys(np.asarray(k)), n)
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(jax.random.permutation(k, n)))

@@ -15,7 +15,7 @@ the JAX package's, on the CPU, and the readout solve it leans on.
   * the readout solve on a state matrix of low numerical rank, where
     rounding leaves the fp32 Gram indefinite and the float64 Cholesky
     fails: the port takes the JAX package's Newton-Schulz solver
-    (models/esn.py:_ns_solver), finite, its fitted outputs within 1% of
+    (ops/linalg.py:ns_solver), finite, its fitted outputs within 1% of
     the JAX readout's; a well-conditioned system keeps the Cholesky solve.
     Before this solver the tiny base raised in the Cholesky at every value.
 """
@@ -135,8 +135,8 @@ def test_readout_solve_of_low_rank_states(R, F, rank, monkeypatch):
            @ r.standard_normal((2, rank, F))).astype(np.float32)
     tgt = (1e-3 * r.standard_normal((2, R, 4))).astype(np.float32)
     calls = []
-    ns = tesn._ns_solver
-    monkeypatch.setattr(tesn, "_ns_solver",
+    ns = tesn.ns_solver
+    monkeypatch.setattr(tesn, "ns_solver",
                         lambda A: calls.append(A.shape) or ns(A))
     got = tesn._readout_lstsq(torch.as_tensor(ext),
                               torch.as_tensor(tgt)).numpy()
