@@ -41,9 +41,13 @@ nvcc per source, all started together; sm_90a), then:
      are smaller than the card's SM count (100 rows); [K2 siso] the
      siso_qpsk_awgn detect shape (399 rows of one block, T = 512, n_in =
      n_out = 2, n_res = 200) and [K2 sweep n_res 50 / 600] the sweep's 2x2
-     plant (288 rows, T = 522, n_in = n_out = 4), noise 0; each line prints
-     the tiling the wrapper chose (rows a block, blocks, blocks an SM,
-     shared memory);
+     plant (288 rows, T = 522, n_in = n_out = 4) and [K2 zoo2x2 nmse 16
+     rows] the 2x2 comparison's pilot NMSE (16 rows of 16 readouts, T =
+     522, n_res 300) and [K2 zoo2x2 detect 288 rows] its ESN detector and
+     data NMSE (288 rows, n_res 300), and [K2 compare2x2 cli detect / nmse
+     2 rows] the same at the compare2x2 CLI's --fast run (2 blocks, T =
+     266), noise 0; each line prints the tiling
+     the wrapper chose (rows a block, blocks, blocks an SM, shared memory);
   4. K3, the ESN state harvest (csrc/esn_states.cu, a thread-block cluster
      kernel), against plain esn_states at the mimo_4x8_nbf fit shape (128 x
      522 x 600) and the flagship fit shape (128 x 138 x 300), the same
@@ -56,9 +60,11 @@ nvcc per source, all started together; sm_90a), then:
      port never calls it; its ms is K3's library_ms); [K3 ragged] 100, 9 and
      300 rows at the NBF fit shape; [K3 siso 1 row / 16 rows] the
      siso_qpsk_awgn fit (512 x 200, n_in = n_out = 2), [K3 sweep n_res
-     50 / 600] the sweep's fits (16 x 522, n_in = n_out = 4) and [K3
-     classify sm2 2 rows] the classify CLI's sm2 fit (2 x 138 x 300, n_in
-     16, n_out 8), noise 0, with the plan, ms, plain ms and bound;
+     50 / 600] the sweep's fits (16 x 522, n_in = n_out = 4), [K3 zoo2x2
+     fit] the 2x2 comparison's fits (16 x 522 x 300, n_in = n_out = 4),
+     [K3 compare2x2 cli fit] the CLI's --fast fits (2 x 266 x 300) and
+     [K3 classify sm2 2 rows] the classify CLI's sm2 fit (2 x 138 x 300,
+     n_in 16, n_out 8), noise 0, with the plan, ms, plain ms and bound;
   5. K4, the grouped-readout predict (csrc/esn_predict_grouped.cu), against
      plain grouped esn_predict and against K2 at the flagship detect shape,
      [K4-nbf] the same at the mimo_4x8_nbf detect shape (3 slots a block);
@@ -137,7 +143,23 @@ nvcc per source, all started together; sm_90a), then:
        within 1e-4;
        [classify sm2] the CLI at --frontend sm2 --fast (mimo_4x8_cdl at full
        width, 2 blocks an SNR): K3 launched, SERs printed; the CLI's
-       [warn] lines (the best-effort PNG step) are passed on to the log.
+       [warn] lines (the best-effort PNG step) are passed on to the log;
+       [compare2x2] `run_zoo_blocks` (the 2x2 model-zoo comparison) on
+       uncoded mimo_2x2_nbf at full width (N = 512, n_res 300, T = 522, D
+       = 18), 16 blocks, 50 epochs, seed 0, at 12 and 30 dB with the CLI's
+       keys (SNR indices 4 and 10: the draws of the JAX package's TPU run,
+       results/compare_2x2_tpu_r3), depth cut from 11 SNRs to 2: K3 twice
+       and K2 three times an SNR (after a 2-epoch warm-up at the same
+       shapes); the classical detectors' BERs within 2% relative of the TPU
+       run's, the trained models' within 0.002, the ESN's within 0.03
+       (its state noise comes from another stream), every BER in (0, 0.5),
+       the NMSEs beside the TPU run's, each phase's ms; [compare2x2 gru]
+       the GRU's per-block training through torch.nn.GRU (cuDNN) against
+       the plain vmapped loop at that pilot shape, 5 epochs: losses within
+       1e-5 relative, ms an epoch of both; the trained GRUs' predictions
+       of 16 x 18 rows against rnn_apply's within 1e-4, ms of both;
+       [compare2x2 cli] the CLI at --fast --blocks 2 --epochs 5: its
+       artifacts written and read, K3 and K2 launched on every SNR.
      No QC path may reach the graph decoder (its count stays 0);
   8. one JSON line listing the kernels (launches on the main paths, error
      against the plain version, times, bound: the largest of bytes over the
@@ -619,16 +641,17 @@ def main() -> None:
             *dims, heights=esn_cuda.tile_heights(
                 dims[1], "ablate" if ablate else "per_row")))
 
-    def predict_shape(c, G: int, seed: int):
+    def predict_shape(c, G: int, seed: int, Dg: int | None = None):
         """Reservoir, scale, grouped readouts and inputs of a detect call of
-        G blocks of config c, at full width."""
+        G blocks of config c, at full width: Dg rows a block (default the
+        config's data symbols)."""
         n_res = c.esn.n_reservoir
         n_in, n_out = 2 * c.channel.n_rx, 2 * c.channel.n_tx
         delay = c.esn.shared_delay(c.ofdm.isi_duration)
         T = c.ofdm.n_subcarriers + c.ofdm.cp_len + delay
         res = init_reservoir(rng.prng_key(seed, dev), n_in, n_out, n_res,
                              c.esn.spectral_radius, c.esn.sparsity, 0.0)
-        B = G * c.data_symbols_per_block
+        B = G * (c.data_symbols_per_block if Dg is None else Dg)
         inputs = torch.randn(B, T, n_in, generator=gen, device=dev)
         Wt_out = 0.02 * torch.randn(G, n_res + n_in, n_out, generator=gen,
                                     device=dev)
@@ -727,11 +750,11 @@ def main() -> None:
          f"K2 {k4n_vs_k2:.3e} | kernel {k4n_ms:.3f} ms, K2 {k2n_ms:.3f} ms")
     del pk_n, pp_n, pg_n, inputs_n
 
-    def k2_shape(c, G_c: int, label: str, seed: int):
+    def k2_shape(c, G_c: int, label: str, seed: int, Dg: int | None = None):
         """K2 against its plain version at the detect shape of G_c blocks of
         config c (noise 0: atol 1e-4 / rtol 1e-3), with its tiling, ms,
         plain ms and bound."""
-        r, x, W, nf = predict_shape(c, G_c, seed)
+        r, x, W, nf = predict_shape(c, G_c, seed, Dg)
         err = close(esn_cuda.esn_predict_cuda(r, scale, W, x, nf, 0),
                     esn_predict(r, scale, W, x, nf), f"K2 {label}")
         ms = cuda_ms(lambda: esn_cuda.esn_predict_cuda(r, scale, W, x, nf,
@@ -757,6 +780,16 @@ def main() -> None:
     for n_res_w in (50, 600):
         k2_shape(with_reservoir(nbf2, n_res_w), 16, f"sweep n_res {n_res_w}",
                  13)
+    # the 2x2 comparison: its ESN detector and data NMSE (288 rows of 16
+    # readouts at the preset's n_res 300) and its pilot NMSE (one row a
+    # block against its own readout)
+    k2_shape(nbf2, 16, "zoo2x2 detect 288 rows", 20)
+    k2_shape(nbf2, 16, "zoo2x2 nmse 16 rows", 18, Dg=1)
+    # the compare2x2 CLI's run below (--fast: N = 256, T = 266; 2 blocks):
+    # its ESN detector and data NMSE (2 D rows) and its pilot NMSE (2 rows)
+    nbf2_fast = mimo_2x2_nbf(fast=True)
+    k2_shape(nbf2_fast, 2, "compare2x2 cli detect", 21)
+    k2_shape(nbf2_fast, 2, "compare2x2 cli nmse 2 rows", 22, Dg=1)
 
     # ---- 4. K3: ESN state harvest vs its plain version ----------------------
     def k3_plan_str(p) -> str:
@@ -889,6 +922,10 @@ def main() -> None:
     for n_res_w in (50, 600):
         k3_shape(with_reservoir(nbf2, n_res_w), 16, f"sweep n_res {n_res_w}",
                  15)
+    # the 2x2 comparison's two fits an SNR (the preset's reservoir)
+    k3_shape(nbf2, 16, "zoo2x2 fit", 17)
+    # the compare2x2 CLI's fits (--fast, 2 blocks: 2 x 266 x 300)
+    k3_shape(nbf2_fast, 2, "compare2x2 cli fit", 23)
     # the classify CLI's sm2 frontend: the flagship ESN fit on its 2 blocks
     # an SNR
     k3_shape(cfg, 2, "classify sm2 2 rows", 16)
@@ -1778,6 +1815,147 @@ def main() -> None:
                                      ("esn_states",), "classify sm2")
         _check(ser2[20.0]["traditional"] < 0.5,
                f"classify sm2: traditional SER {ser2[20.0]} at 20 dB")
+
+        # ---- the 2x2 model-zoo comparison at full width --------------------
+        # [compare2x2]: run_zoo_blocks on uncoded mimo_2x2_nbf, 16 blocks, 50
+        # epochs, at 12 and 30 dB with the CLI's keys (SNR indices 4 and 10
+        # of the preset's grid), so the channel, bit and noise draws are
+        # those of the JAX package's TPU run; depth cut from 11 SNRs to 2
+        from esn_ofdm_mimo_tpu_torch.experiments import compare2x2 as cmp_cli
+        from esn_ofdm_mimo_tpu_torch.models import zoo
+        from esn_ofdm_mimo_tpu_torch.pipelines.zoo2x2 import run_zoo_blocks
+        zc = dataclasses.replace(nbf2, ldpc=dataclasses.replace(
+            nbf2.ldpc, enabled=False))
+        tpu_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "results", "compare_2x2_tpu_r3")
+        with open(os.path.join(tpu_dir, "BERvsEBNo_esn_all_ml_model.pkl"),
+                  "rb") as f:
+            tpu_ber = pickle.load(f)
+        with open(os.path.join(tpu_dir, "NMSE_compare.pkl"), "rb") as f:
+            tpu_nmse = pickle.load(f)
+        root0 = rng.prng_key(0, dev)
+        G_z, E_z = 16, 50
+        # warm-up at the measured run's shapes (K2 and K3 at 16 blocks are
+        # checked above), 2 epochs
+        run_zoo_blocks(zc, 12.0, rng.block_keys(root0, 4, torch.arange(G_z)),
+                       epochs=2)
+        for jj in (4, 10):
+            e_z = zc.ebno_db[jj]
+            keys_z = rng.block_keys(root0, jj, torch.arange(G_z))
+            out_z, ph_z, wall_z, la_z = count_run(
+                lambda ph: run_zoo_blocks(zc, e_z, keys_z, epochs=E_z,
+                                          timings=ph),
+                ("esn_predict", "esn_states"), f"compare2x2 {e_z:g} dB")
+            _check(la_z["esn_states"] == 2 and la_z["esn_predict"] == 3
+                   and la_z["bp_decode"] == 0,
+                   f"compare2x2 {e_z:g} dB: launches {la_z}, expected K3 "
+                   f"twice and K2 three times")
+            ber_z = {d: v / out_z.total_bits
+                     for d, v in out_z.bit_errors.items()}
+            i_t = tpu_ber["EBN0"].index(e_z)
+            ref_z = {d: tpu_ber["BER"][d][i_t] for d in ber_z}
+            # the classical detectors and the trained models see the TPU
+            # run's draws and inits (measured within 7e-5 of its BERs); the
+            # ESN's state noise is drawn from another stream (8e-4)
+            for d, v in ber_z.items():
+                band = (0.02 * ref_z[d] if d in ("zf_perfect", "zf_ls",
+                                                 "mmse")
+                        else 0.03 if d == "esn" else 0.002)
+                _check(0.0 < v < 0.5 and abs(v - ref_z[d]) <= band,
+                       f"compare2x2 {e_z:g} dB: {d} BER {v} against the "
+                       f"TPU run's {ref_z[d]} (band {band})")
+            _log(f"[compare2x2] mimo_2x2_nbf uncoded {e_z:g} dB, {G_z} "
+                 f"blocks, {E_z} epochs (N {zc.ofdm.n_subcarriers}, n_res "
+                 f"{zc.esn.n_reservoir}, D {zc.data_symbols_per_block}; "
+                 f"depth cut from 11 SNRs to 2): wall {1e3 * wall_z:.1f} ms "
+                 f"| launches {la_z}")
+            _log(f"[compare2x2] {e_z:g} dB BER (TPU run, "
+                 f"results/compare_2x2_tpu_r3): " + " ".join(
+                     f"{d} {v:.5f} ({ref_z[d]:.5f})"
+                     for d, v in ber_z.items()))
+            for tab, mine in (("NMSE_train", out_z.train_nmse),
+                              ("NMSE_test", out_z.test_nmse)):
+                _log(f"[compare2x2] {e_z:g} dB {tab} a block (TPU run): "
+                     + " ".join(f"{k} {v / G_z:.5f} "
+                                f"({tpu_nmse[tab][k][i_t]:.5f})"
+                                for k, v in mine.items()))
+            _log(f"[compare2x2] {e_z:g} dB phases ms "
+                 f"{json.dumps({k: round(v, 1) for k, v in ph_z.items()})}")
+
+        # [compare2x2 gru]: the GRU's per-block training through
+        # torch.nn.GRU (cuDNN), which the path runs, against the plain loop
+        # of rnn_apply under vmap at the pilot shape, 5 epochs; then the
+        # trained GRUs' predictions at the data shape (18 rows a block)
+        # against rnn_apply's with the plain loop's trained weights
+        xg = torch.randn(G_z, 1, 522, 4, generator=gen, device=dev)
+        yg = 0.3 * torch.randn(G_z, 1, 522, 4, generator=gen, device=dev)
+        mg = [zoo.rnn_init(k, 4, 32, 4)
+              for k in rng.split(rng.prng_key(19, dev), G_z).unbind(0)]
+        t_g = {}
+        for what_g, fn_g in (
+                ("cudnn", lambda: zoo.train_rnn_per_block(
+                    mg, xg, yg, epochs=5, lr=1e-2)),
+                ("plain", lambda: zoo.train_regressor_per_block(
+                    zoo.rnn_apply, mg, xg, yg, epochs=5, lr=1e-2))):
+            sync()
+            t0 = time.perf_counter()
+            t_g[what_g] = fn_g()
+            sync()
+            t_g[what_g + " ms"] = 1e3 * (time.perf_counter() - t0) / 5
+        err_g = float(((t_g["cudnn"].losses - t_g["plain"].losses).abs()
+                       / t_g["plain"].losses.abs()).max())
+        _check(err_g <= 1e-5, f"compare2x2 gru: losses differ from the "
+                              f"plain loop by {err_g} relative")
+        xd = torch.randn(G_z, 18, 522, 4, generator=gen, device=dev)
+        with torch.no_grad():
+            pred_g = t_g["cudnn"].params(xd)
+            pred_p = zoo.apply_per_block(t_g["plain"].params, xd)
+            ms_pg = cuda_ms(lambda: t_g["cudnn"].params(xd), 3)
+            ms_pp = cuda_ms(lambda: zoo.apply_per_block(t_g["plain"].params,
+                                                        xd), 1)
+        err_pg = float((pred_g - pred_p).abs().max())
+        _check(err_pg <= 1e-4, f"compare2x2 gru: predictions differ from "
+                               f"rnn_apply's by {err_pg}")
+        _log(f"[compare2x2 gru] {G_z} blocks x 522 steps, hidden 32, 5 "
+             f"epochs: losses within {err_g:.3e} relative of the plain "
+             f"loop (tolerance 1e-5) | ms an epoch: torch.nn.GRU (cuDNN) "
+             f"{t_g['cudnn ms']:.1f}, plain loop under vmap "
+             f"{t_g['plain ms']:.1f} | predictions of {G_z} x 18 rows: max "
+             f"abs err {err_pg:.3e} (tolerance 1e-4), ms cuDNN "
+             f"{ms_pg:.3f}, plain {ms_pp:.3f}")
+
+        # [compare2x2 cli]: the CLI once, --fast (N = 256), 2 blocks, 5
+        # epochs, on its 5 SNRs
+        out_c = os.path.join(tmp, "compare2x2")
+        with contextlib.redirect_stdout(io.StringIO()) as so:
+            _, _, wall_cc, la_cc = count_run(
+                lambda ph: cmp_cli.main(["--fast", "--blocks", "2",
+                                         "--epochs", "5", "--outdir",
+                                         out_c]),
+                ("esn_predict", "esn_states"), "compare2x2 cli")
+        with open(os.path.join(out_c, "BERvsEBNo_esn_all_ml_model.pkl"),
+                  "rb") as f:
+            cli_ber = pickle.load(f)
+        with open(os.path.join(out_c, "NMSE_compare.pkl"), "rb") as f:
+            cli_nmse = pickle.load(f)
+        with open(os.path.join(out_c, "events.jsonl")) as f:
+            cli_ev = [json.loads(line)["event"] for line in f]
+        n_e = len(cli_ber["EBN0"])
+        _check(sorted(cli_ber["BER"]) == sorted(tpu_ber["BER"])
+               and sorted(cli_nmse) == ["EBN0", "NMSE_test", "NMSE_train"]
+               and all(len(v) == n_e and all(0.0 <= b <= 1.0 for b in v)
+                       for v in cli_ber["BER"].values())
+               and cli_ev == ["run_start"] + ["snr_done"] * n_e
+               + ["run_done"]
+               and la_cc["esn_states"] == 2 * n_e
+               and la_cc["esn_predict"] == 3 * n_e,
+               f"compare2x2 cli: artifacts {cli_ber}, {sorted(cli_nmse)}, "
+               f"events {cli_ev}, launches {la_cc}")
+        _log(f"[compare2x2 cli] --fast --blocks 2 --epochs 5 ({n_e} SNRs): "
+             f"wall {1e3 * wall_cc:.1f} ms | launches {la_cc}")
+        for line in so.getvalue().splitlines():
+            if line.startswith(("[2x2]", "[warn]")):
+                _log(f"[compare2x2 cli] {line}")
 
     if "--profile" in sys.argv[1:]:
         _profile_main_path(

@@ -19,13 +19,18 @@ distribution is shared.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..ops.linalg import ns_solver
 from ..utils import rng
+
+# The readout solve (ESN_TPU_READOUT, the JAX package's switch and values):
+# "ridge" (default), the JAX package's Newton-Schulz ridge solve; "pinv",
+# its ablation, pyESN's unregularised float64 pseudo-inverse.
+_READOUT_IMPL = os.environ.get("ESN_TPU_READOUT", "ridge")
 
 
 class EsnReservoir(NamedTuple):
@@ -112,38 +117,41 @@ def esn_states(res: EsnReservoir, scale: EsnScale, inputs: torch.Tensor,
 
 def _readout_lstsq(ext: torch.Tensor, tgt: torch.Tensor,
                    rel_jitter: float = 1e-7) -> torch.Tensor:
-    """Batched ridge least squares: ext (B, R, F), tgt (B, R, n_out) ->
-    Wt_out (B, F, n_out) with ext @ Wt_out ~= tgt.
+    """Batched least squares: ext (B, R, F), tgt (B, R, n_out) -> Wt_out
+    (B, F, n_out) with ext @ Wt_out ~= tgt.
 
-    The Gram is formed in fp32 with a relative Tikhonov jitter
-    (rel_jitter * mean diagonal), factored by Cholesky in float64 (where
-    rounding left it indefinite, the batch is solved by the JAX package's
-    Newton-Schulz iteration, `ns_solver`), and the solution gets one step
-    of iterative refinement against the original operator. Tall systems
-    (F <= R) solve the F x F primal normal equations; wide ones (the
-    flagship: F = 316 > R = 128) the R x R dual ext^T (ext ext^T +
-    lambda I)^-1 tgt — both tend to pyESN's min-norm pinv solution as
-    lambda -> 0 (pyESN.py:189-192)."""
+    ESN_TPU_READOUT=ridge (the default) is the JAX package's solve: the fp32
+    Gram with a relative Tikhonov jitter (rel_jitter * mean diagonal), its
+    Newton-Schulz inverse (`ns_solver`, 40 iterations), and one step of
+    iterative refinement against the original operator. The iteration
+    resolves eigenvalues down to ~2^-40 of the largest only, so on an
+    ill-conditioned Gram it regularises: an exact factorisation gives
+    another readout, and other BERs. Tall systems (F <= R) solve the F x F
+    primal normal equations; wide ones (the flagship: F = 316 > R = 128)
+    the R x R dual ext^T (ext ext^T + lambda I)^-1 tgt; both tend to pyESN's
+    min-norm pinv solution as lambda -> 0 (pyESN.py:189-192).
+
+    ESN_TPU_READOUT=pinv is the JAX package's ablation: pyESN's
+    unregularised float64 pinv(ext) @ tgt, cast back to fp32."""
+    if _READOUT_IMPL == "pinv":
+        return (torch.linalg.pinv(ext.double()) @ tgt.double()).to(ext.dtype)
+    if _READOUT_IMPL != "ridge":
+        raise ValueError(f"ESN_TPU_READOUT={_READOUT_IMPL!r}: expected "
+                         f"'ridge' or 'pinv'")
     _, R, F = ext.shape
 
-    def factor(A):
+    def prepare(A):
         n = A.shape[-1]
         tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) / n
         eye = torch.eye(n, dtype=A.dtype, device=A.device)
-        A = A + (rel_jitter * tr)[:, None, None] * eye
-        L, info = torch.linalg.cholesky_ex(A.double())
-        if bool(info.any()):
-            # the fp32 Gram is numerically singular, so that rounding left
-            # it indefinite: the JAX package's own solver
-            return ns_solver(A)
-        return lambda b: torch.cholesky_solve(b.double(), L).to(ext.dtype)
+        return ns_solver(A + (rel_jitter * tr)[:, None, None] * eye)
 
     extT = ext.transpose(-1, -2)
     if F <= R:
-        solve = factor(extT @ ext)
+        solve = prepare(extT @ ext)
         x = solve(extT @ tgt)
         return x + solve(extT @ (tgt - ext @ x))
-    solve = factor(ext @ extT)
+    solve = prepare(ext @ extT)
     z = solve(tgt)
     z = z + solve(tgt - ext @ (extT @ z))
     return extT @ z

@@ -24,7 +24,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as Fn
 
-from .esn import EsnReservoir, EsnScale, _readout_lstsq, scale_inputs
+from ..utils import rng
+from .esn import (EsnReservoir, EsnScale, _readout_lstsq, key_seed,
+                  scale_inputs)
 from .esn_cuda import choose_readout, esn_predict_cuda
 from .esn_states_cuda import esn_states_cuda
 
@@ -93,3 +95,42 @@ def esn_detect_symbols(res: EsnReservoir, scale: EsnScale,
     x_hat_td = _deinterleave_reim(pred[:, :N])             # (B, n_tx, N)
     X_hat = torch.fft.fft(x_hat_td, dim=-1) / N / power_scale
     return X_hat.transpose(-1, -2)
+
+
+def esn_nmse(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
+             y_cp: torch.Tensor, x_cp: torch.Tensor, delay: int, cp_len: int,
+             isi_duration: int, seed: int = 0) -> torch.Tensor:
+    """NMSE of the predicted waveform, the reference's nmse_for_delay
+    (helper_mimo_esn_generic.py:40-56): y_cp (B, n_rx, T), x_cp (B, n_tx,
+    T); per TX, the squared error of the first T - isi + 1 predicted samples
+    against x_cp[..., isi - 1:] over the energy of the latter, summed over
+    TX -> (B,). Wt_out may be grouped as in `esn_detect_symbols`; the
+    prediction runs K2 on the card."""
+    X_in = build_esn_input(y_cp, delay)
+    pred = esn_predict_cuda(res, scale, Wt_out, X_in, delay + cp_len, seed)
+    x_true = x_cp[..., isi_duration - 1:]
+    x_hat = _deinterleave_reim(pred)[..., :x_true.shape[-1]]
+    err = (x_hat - x_true).abs().pow(2).sum(-1)
+    ref = x_true.abs().pow(2).sum(-1) + 1e-12
+    return (err / ref).sum(-1)
+
+
+def select_delay_by_nmse(res: EsnReservoir, scale: EsnScale,
+                         y_cp: torch.Tensor, x_cp: torch.Tensor,
+                         min_delay: int, max_delay: int, cp_len: int,
+                         isi_duration: int, key: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's DelayFlag != 0 path: fit and score every delay in
+    [min_delay, max_delay], keep the one of least NMSE per block. Each
+    candidate splits `key` into (fit, predict, next) as the JAX package
+    does, and seeds its fit (K3) and prediction (K2) from the first two.
+    Returns (best delay (B,) int32, NMSE table (B, n_delays))."""
+    nmses = []
+    for d in range(min_delay, max_delay + 1):
+        kf, kp, key = rng.split(key, 3).unbind(0)
+        Wt_out = train_mimo_esn(res, scale, y_cp, x_cp, d, cp_len,
+                                key_seed(kf))
+        nmses.append(esn_nmse(res, scale, Wt_out, y_cp, x_cp, d, cp_len,
+                              isi_duration, key_seed(kp)))
+    table = torch.stack(nmses, dim=-1)
+    return (min_delay + torch.argmin(table, dim=-1)).to(torch.int32), table

@@ -18,6 +18,21 @@ apply(params, x). `train_regressor` / `train_classifier` run `epochs`
 full-batch steps of `torch.optim.Adam` (optax.adam's lr, betas (0.9,
 0.999), eps 1e-8) on a copy of the tree and return TrainResult(params,
 losses), losses being each step's loss before its update.
+
+`train_regressor_per_block` trains B models of one structure at once, one
+on each coherence block's own data (the JAX package's
+`jax.vmap(train_regressor)`, pipelines/zoo2x2.py:102-123): their
+parameters are stacked along a leading block axis (`BlockModels`), the
+apply runs under `torch.func.vmap`, and one Adam steps on the sum over
+blocks of each block's mean loss. Adam acts element by element and each
+block's gradient is its own loss's, so this is B separate Adams.
+`train_rnn_per_block` does the same for the GRU through `torch.nn.GRU`
+(cuDNN on the card), one call a block, and returns the trained modules
+(`GruBlocks`), which predict the same way; `rnn_apply` stays the plain
+version they are held against. The plain loop of T steps under
+vmap launches some ten kernels a step forward and as many backward, and
+took ~15x cuDNN's time on an H100 at the 2x2 comparison's pilot
+(chip_smoke.py's `[compare2x2 gru]` times both).
 """
 from __future__ import annotations
 
@@ -219,6 +234,119 @@ def train_classifier(apply_fn: Callable, params: nn.Module, X: torch.Tensor,
 def _entry_params(p: nn.Module, key: str):
     entry = getattr(p, key)
     return entry.parameters() if isinstance(entry, nn.Module) else [entry]
+
+
+class BlockModels(NamedTuple):
+    """B models of one structure: `base`, one block's tree (on the meta
+    device) wrapped with its apply, and the B trees' parameters and
+    buffers stacked along a leading block axis, keyed as in `base`."""
+    base: nn.Module
+    params: dict
+    buffers: dict
+
+
+class _Applied(nn.Module):
+    """apply_fn bound to a parameter tree, so that `functional_call` can
+    swap the tree's tensors for one block's slice of the stack."""
+
+    def __init__(self, apply_fn: Callable, params: nn.Module):
+        super().__init__()
+        self.apply_fn, self.p = apply_fn, params
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply_fn(self.p, x)
+
+
+def stack_blocks(apply_fn: Callable, models: Sequence[nn.Module]
+                 ) -> BlockModels:
+    """B trees of one structure -> BlockModels; the stacked parameters are
+    new leaves that require grad."""
+    params, buffers = torch.func.stack_module_state(
+        [_Applied(apply_fn, m) for m in models])
+    return BlockModels(copy.deepcopy(_Applied(apply_fn, models[0])).to(
+        "meta"), params, buffers)
+
+
+def apply_per_block(bm: BlockModels, x: torch.Tensor) -> torch.Tensor:
+    """x (B, ...) -> the stack of model b applied to x[b]."""
+    def one(p, b, xb):
+        return torch.func.functional_call(bm.base, (p, b), (xb,))
+    return torch.func.vmap(one)(bm.params, bm.buffers, x)
+
+
+def train_regressor_per_block(apply_fn: Callable,
+                              models: Sequence[nn.Module], X: torch.Tensor,
+                              Y: torch.Tensor, epochs: int = 50,
+                              lr: float = 1e-3) -> TrainResult:
+    """`train_regressor` of models[b] on (X[b], Y[b]) for every block b at
+    once: X (B, ...), Y (B, ...). Returns TrainResult(BlockModels, losses
+    (B, epochs)), each block's loss before each step's update."""
+    bm = stack_blocks(apply_fn, models)
+    B = len(models)
+    opt = torch.optim.Adam(bm.params.values(), lr=lr, betas=(0.9, 0.999),
+                           eps=1e-8)
+    losses = torch.empty(B, epochs, device=X.device)
+    for i in range(epochs):
+        opt.zero_grad(set_to_none=True)
+        loss = ((apply_per_block(bm, X) - Y) ** 2).reshape(B, -1).mean(1)
+        loss.sum().backward()
+        opt.step()
+        losses[:, i] = loss.detach()
+    return TrainResult(params=bm, losses=losses)
+
+
+class _CudnnGru(nn.Module):
+    """One block's `rnn_apply` GRU as a `torch.nn.GRU` and its head. The
+    gate order (r, z, n) and n = tanh(W_in x + b_in + r * (W_hn h + b_hn))
+    are PyTorch's as they are the JAX package's GRU's, with weight_ih = wi^T,
+    weight_hh = wh^T, bias_ih = bi and bias_hh held at zero (no gradient):
+    `rnn_apply` has no hidden bias."""
+
+    def __init__(self, p: Params):
+        super().__init__()
+        n_in, nh = p.wi.shape[0], p.wh.shape[0]
+        self.gru = nn.GRU(n_in, nh, batch_first=True).to(p.wi)
+        with torch.no_grad():
+            self.gru.weight_ih_l0.copy_(p.wi.T)
+            self.gru.weight_hh_l0.copy_(p.wh.T)
+            self.gru.bias_ih_l0.copy_(p.bi)
+            self.gru.bias_hh_l0.zero_()
+        self.gru.bias_hh_l0.requires_grad_(False)
+        self.head = copy.deepcopy(p.head)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.gru(x)[0])
+
+
+class GruBlocks(nn.ModuleList):
+    """B trained `_CudnnGru`s, one a block: called on x (B, S, T, n_in), it
+    returns the stack of block b's GRU on x[b] (S sequences), one
+    `torch.nn.GRU` call a block."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.stack([g(xb) for g, xb in zip(self, x)])
+
+
+def train_rnn_per_block(models: Sequence[Params], X: torch.Tensor,
+                        Y: torch.Tensor, epochs: int = 50, lr: float = 1e-3
+                        ) -> TrainResult:
+    """`train_regressor_per_block(rnn_apply, models, X, Y, ...)` with each
+    block's GRU run by `torch.nn.GRU`: X (B, S, T, n_in), Y (B, S, T,
+    n_out). One Adam over every block's weights, on the sum over blocks of
+    each block's mean loss. Returns TrainResult(GruBlocks, losses (B,
+    epochs)); the pipeline predicts through the trained GruBlocks too."""
+    grus = GruBlocks([_CudnnGru(m) for m in models])
+    opt = torch.optim.Adam([p for p in grus.parameters() if p.requires_grad],
+                           lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    losses = torch.empty(len(models), epochs, device=X.device)
+    for i in range(epochs):
+        opt.zero_grad(set_to_none=True)
+        loss = torch.stack([torch.mean((g(x) - y) ** 2)
+                            for g, x, y in zip(grus, X, Y)])
+        loss.sum().backward()
+        opt.step()
+        losses[:, i] = loss.detach()
+    return TrainResult(params=grus, losses=losses)
 
 
 def window_flatten(x: torch.Tensor, window: int = 8) -> torch.Tensor:

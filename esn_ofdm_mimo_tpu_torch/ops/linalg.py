@@ -1,10 +1,10 @@
 """Dense linear algebra the port shares between modules.
 
 `ns_solver` is the JAX package's Newton-Schulz SPD solver
-(esn_ofdm_mimo_tpu/ops/linalg_mxu.py:ns_prepare). The port keeps it where
-the result must equal the JAX package's on a numerically singular system:
-the iteration's implicit regularisation is then the result (the ESN
-readout's fallback, models/esn.py, and the ELM readout, models/elm.py).
+(esn_ofdm_mimo_tpu/ops/linalg_mxu.py:ns_prepare). The port solves with it
+where the result must equal the JAX package's on an ill-conditioned
+system: the iteration's implicit regularisation is then the result (the
+ESN readout, models/esn.py, and the ELM readout, models/elm.py).
 """
 from __future__ import annotations
 

@@ -138,7 +138,7 @@ ESN_OVERRIDES = ("spectral_radius", "sparsity", "noise", "input_scaler",
 
 
 def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
-                esn_over: dict | None = None) -> BlockState:
+                esn_over: dict | None = None, return_pilot: bool = False):
     """Channel draw, pilot synthesis, channel estimation and ESN training
     for B blocks (reference OFDM_SISO_NBF_LDPC.py:270-384). bkeys (B, 2).
     With EsnConfig.train_ebno_fixed_db set, a second ESN is trained on the
@@ -148,7 +148,12 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
     esn_over: ESN hyperparameters (keys of ESN_OVERRIDES) that replace the
     config's, as in the JAX package: the reservoir draw takes the spectral
     radius, sparsity and noise, both fits the input scaler, the matched fit
-    alone the teacher scaling; the input shift stays the config's."""
+    alone the teacher scaling; the input shift stays the config's.
+
+    return_pilot: also return the pilot's waveforms (y_cp, x_tgt), the
+    received pilot and the teacher the ESN trained on (the reference
+    trains every zoo model on them, Demo_MIMO_2x2_all_DL_model_comparion.py
+    :310), as (BlockState, (y_cp, x_tgt))."""
     _check_supported(cfg)
     ofdm, esn_cfg, ch = cfg.ofdm, cfg.esn, cfg.channel
     N, cp, isi = ofdm.n_subcarriers, ofdm.cp_len, ofdm.isi_duration
@@ -220,9 +225,10 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
         scale_f, Wt_out_f = fit(lb_f, y_cp_f,
                                 _esn_target(cfg, x_cp_f, x_clean_f),
                                 _K_ESNFIT_F, esn_cfg.teacher_scaling)
-    return BlockState(taps=taps, H_true=H_true, H_ls=H_ls, H_mmse=H_mmse,
-                      reservoir=res, scale_m=scale_m, scale_f=scale_f,
-                      Wt_out_m=Wt_out_m, Wt_out_f=Wt_out_f)
+    state = BlockState(taps=taps, H_true=H_true, H_ls=H_ls, H_mmse=H_mmse,
+                       reservoir=res, scale_m=scale_m, scale_f=scale_f,
+                       Wt_out_m=Wt_out_m, Wt_out_f=Wt_out_f)
+    return (state, (y_cp, x_tgt)) if return_pilot else state
 
 
 class DataSymbols(NamedTuple):
@@ -234,13 +240,18 @@ class DataSymbols(NamedTuple):
 
 def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
                         bkeys: torch.Tensor, code_bits: torch.Tensor,
-                        detectors: Tuple[str, ...] = DETECTORS
-                        ) -> DataSymbols:
+                        detectors: Tuple[str, ...] = DETECTORS,
+                        return_td: bool = False):
     """D data symbols through TX -> channel -> detectors
     (reference OFDM_SISO_NBF_LDPC.py:387-460). code_bits (B, D, n_tx, N*m).
     The ESN detectors run the CUDA predict kernel (or its plain version on
     the CPU); "esn_fixed" only where the block state has a fixed-SNR
-    readout."""
+    readout.
+
+    return_td: also return the time-domain waveforms (y_cp, x_tgt), each
+    (B, D, n_*, N + cp): the received symbols and the ESN's teacher
+    waveform of the transmitted ones (EsnConfig.target_waveform), as
+    (DataSymbols, (y_cp, x_tgt))."""
     unknown = set(detectors) - set(DETECTORS)
     if unknown:
         raise ValueError(f"unknown detectors {sorted(unknown)}")
@@ -252,7 +263,7 @@ def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
     lb = link_budget(cfg, ebno_db)
 
     X = bits_to_symbols(code_bits, m)                       # (B, D, n_tx, N)
-    x_cp, _ = _tx_chain(cfg, X, lb)
+    x_cp, x_clean = _tx_chain(cfg, X, lb)
     noise = awgn(rng.fold_in(bkeys, _K_DNOISE), (D, n_rx, T), ofdm.noise_psd,
                  T)
     y_cp = apply_fir_channel(state.taps[:, None], x_cp) + noise
@@ -284,7 +295,10 @@ def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
     if "mmse" in detectors:
         X_hat["mmse"] = equalize(
             state.H_mmse, _f32(np.float32(ofdm.noise_psd) / np.float32(lb.pi)))
-    return DataSymbols(X_true=X.transpose(-1, -2), Y=Y, X_hat=X_hat)
+    data = DataSymbols(X_true=X.transpose(-1, -2), Y=Y, X_hat=X_hat)
+    if return_td:
+        return data, (y_cp, _esn_target(cfg, x_cp, x_clean))
+    return data
 
 
 def data_bits_for_blocks(cfg: SimConfig, bkeys: torch.Tensor, n_data: int,

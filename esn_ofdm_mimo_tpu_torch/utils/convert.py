@@ -2,10 +2,11 @@
 
 The port imports nothing of the JAX package, so weights cross as plain numpy
 data: a dict of the `EsnReservoir` / `EsnScale` fields, a readout array,
-the `LdpcCode` / `QcInfo` and `NrCode` fields, and the classifier zoo's
-parameter trees. These helpers turn them into the port's types on a given
-device, so both packages can compute on identical parameters (the parity
-tests do exactly that).
+the `LdpcCode` / `QcInfo` and `NrCode` fields, and the zoo's classifier
+and regressor parameter trees (also vmapped ones, one tree a block). These
+helpers turn them into the port's types on a given device, so both
+packages can compute on identical parameters (the parity tests do exactly
+that).
 """
 from __future__ import annotations
 
@@ -106,3 +107,41 @@ def classifier(name: str, tree, device=None):
     if name == "elm":
         return ElmParams(t("W1"), t("b1"), t("W2"))
     raise ValueError(f"unknown classifier {name!r}")
+
+
+def regressor(name: str, tree, device=None):
+    """One regressor's JAX parameters (numpy leaves) -> the port's tree for
+    the matching apply of models/zoo.py:
+      cnn  {"convs": [{"w", "b"}, ...], "head": {"w", "b"}} -> zoo.Params
+      rnn  {"wi", "wh", "bi", "head": {"w", "b"}}          -> zoo.Params
+      fnn  [{"w", "b"}, ...]                                -> nn.ModuleList"""
+    if name == "cnn":
+        return zoo.Params({"convs": _mlp(tree["convs"], device),
+                           "head": _dense(tree["head"], device)})
+    if name == "rnn":
+        return zoo.Params({k: tensor(tree[k], device)
+                           for k in ("wi", "wh", "bi")}
+                          | {"head": _dense(tree["head"], device)})
+    if name == "fnn":
+        return _mlp(tree, device)
+    raise ValueError(f"unknown regressor {name!r}")
+
+
+def _block(tree, b: int):
+    """Block b of a vmapped tree: every leaf indexed at b."""
+    if isinstance(tree, dict):
+        return {k: _block(v, b) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_block(v, b) for v in tree]
+    return np.asarray(tree)[b]
+
+
+def regressors_per_block(name: str, tree, device=None) -> list:
+    """A vmapped regressor tree (every leaf with a leading block axis B, as
+    `jax.vmap(init)` or `jax.vmap(train)` returns it) -> the port's B trees,
+    the models `zoo.train_regressor_per_block` takes."""
+    leaf = tree
+    while isinstance(leaf, (dict, list, tuple)):
+        leaf = next(iter(leaf.values())) if isinstance(leaf, dict) else leaf[0]
+    return [regressor(name, _block(tree, b), device)
+            for b in range(np.asarray(leaf).shape[0])]

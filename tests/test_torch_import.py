@@ -37,7 +37,9 @@ def test_port_imports_with_jax_blocked():
             "esn_ofdm_mimo_tpu_torch.models.zoo, "
             "esn_ofdm_mimo_tpu_torch.models.classifiers, "
             "esn_ofdm_mimo_tpu_torch.pipelines.classification, "
-            "esn_ofdm_mimo_tpu_torch.experiments.classify\n"
+            "esn_ofdm_mimo_tpu_torch.experiments.classify, "
+            "esn_ofdm_mimo_tpu_torch.pipelines.zoo2x2, "
+            "esn_ofdm_mimo_tpu_torch.experiments.compare2x2\n"
             "import runpy\n"
             "runpy.run_path('tools/bench_micro_torch.py', run_name='tool')\n"
             "import torch\n"

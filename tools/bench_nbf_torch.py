@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Wall time of the full-width block-fading SNR point by phase, with the
-ESN fits inside its `synth_fit` phase split into their pieces.
+ESN fits inside its `synth_fit` phase split into their pieces, and the
+same split of the flagship point's ESN fits.
 
     python3 tools/bench_nbf_torch.py [--reps N] [--blocks G] [--device D]
 
@@ -16,6 +17,11 @@ ESN fits (`models/esn_mimo.py:train_mimo_esn`, matched and 12 dB fixed):
   * states host: the same call until it returns, before the second
     synchronisation: the wrapper's host work (plan, weight slices, launch);
   * solve: the ridge readout solve (`_readout_lstsq`).
+
+Then, in each repetition, the flagship point `cdl_snr_point` on
+`mimo_4x8_cdl` with chip_smoke.py's `[main]` keys (G blocks, one
+calibration and one decode round at 12 dB: two ESN fits of G blocks), its
+phases and the same split of its fits.
 
 Each piece is timed on the host clock between device synchronisations, so
 the split adds a few synchronisations to the phase it reads. The tool uses
@@ -39,9 +45,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import torch  # noqa: E402
 
 from esn_ofdm_mimo_tpu_torch.experiments.presets import (  # noqa: E402
-    mimo_4x8_nbf)
+    mimo_4x8_cdl, mimo_4x8_nbf)
 from esn_ofdm_mimo_tpu_torch.models import esn_mimo  # noqa: E402
-from esn_ofdm_mimo_tpu_torch.parallel import nbf_snr_point  # noqa: E402
+from esn_ofdm_mimo_tpu_torch.parallel import (  # noqa: E402
+    cdl_snr_point, nbf_snr_point)
 from esn_ofdm_mimo_tpu_torch.pipelines import common  # noqa: E402
 from esn_ofdm_mimo_tpu_torch.utils import rng  # noqa: E402
 from esn_ofdm_mimo_tpu_torch.utils.device import resolve_device  # noqa: E402
@@ -94,7 +101,11 @@ def main(argv=None) -> int:
     common.train_mimo_esn, esn_mimo.esn_states_cuda, esn_mimo._readout_lstsq \
         = _timed(split, dev, common.train_mimo_esn, esn_mimo.esn_states_cuda,
                  esn_mimo._readout_lstsq)
+    cdl = mimo_4x8_cdl()
+    ck = rng.block_keys(root, 0, torch.arange(2 * G)).reshape(2, 1, G, 2)
     nbf_snr_point(nbf, 12.0, keys[12.0][:, :min(8, G)], device=dev)
+    cdl_snr_point(cdl, 12.0, ck[0][:, :min(8, G)], ck[1][:, :min(8, G)],
+                  device=dev)
     for rep in range(args.reps):
         for ebno in (3.0, 12.0):
             split.clear()
@@ -107,6 +118,16 @@ def main(argv=None) -> int:
                   f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}"
                   f" | fits {json.dumps({k: round(v, 2) for k, v in split.items()})}",
                   flush=True)
+        split.clear()
+        phases = {}
+        t0 = time.perf_counter()
+        cdl_snr_point(cdl, 12.0, ck[0], ck[1], device=dev, timings=phases)
+        wall = 1e3 * (time.perf_counter() - t0)
+        fits = {k: round(v, 2) for k, v in split.items()}
+        print(f"[flagship point] rep {rep} 12.0 dB, {G} blocks x (1 cal + 1 "
+              f"decode): wall {wall:.1f} ms | phases "
+              f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}"
+              f" | fits {json.dumps(fits)}", flush=True)
     return 0
 
 
