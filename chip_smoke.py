@@ -68,6 +68,12 @@ nvcc per source, all started together; sm_90a), then:
   5. K4, the grouped-readout predict (csrc/esn_predict_grouped.cu), against
      plain grouped esn_predict and against K2 at the flagship detect shape,
      [K4-nbf] the same at the mimo_4x8_nbf detect shape (3 slots a block);
+     [K2 carried] and [K4 carried]: the flagship detect shape continued
+     from the carry of esn_fit(return_carry=True) at the flagship pilot
+     shape (128 x 138, n_res 300; each block's last state and output on its
+     74 rows) against plain esn_predict(init_carry=...) at atol 1e-4 /
+     rtol 1e-3, with ms, the zero-carry ms in the same turns, plain ms and
+     bound; [K2 carried ragged] 9,435 rows, a carry and a readout a row;
      [K1-layered] the row-layered BP decoder (csrc/bp_decode_layered.cu)
      against plain layered BP on the same codewords as K1 (cap 50) and
      K1-nbf (caps 50 and 100): identical for both min-sum rules,
@@ -97,6 +103,16 @@ nvcc per source, all started together; sm_90a), then:
        ESN_TPU_PREDICT_READOUT=grouped: K4 launched;
        [main newton] the same point with CalibConfig(fit_method="newton"):
        coded BERs within 25% + 2e-3 of the GD fit's, both fits' ms;
+       [block main] the flagship point in EsnConfig(rng_mode="block"), 16
+       blocks, 1 cal + 1 decode round: K3 and K2 launched once a block of
+       each round (one reservoir a block, each block's ESN alone), the
+       counters and calibrators of rounds of 8 x 2 identical to one round
+       of 16, block 2's reservoir and readout alone identical to a batch of
+       4, uncoded BERs in (0, 0.5), each phase's ms and the ESN's ms a
+       block (fit: K3 on one row and the readout solve; detect: K2 on 74
+       rows); [block nbf] the same on mimo_4x8_nbf at full width, 8 blocks,
+       one round at 12 dB (K3 and K2 twice a block: matched and 12 dB
+       fixed);
        [curve] the CLI, esn_ofdm_mimo_tpu_torch.experiments.run.main, on
        mimo_4x8_cdl at 9, 12 and 15 dB, 256 blocks per SNR in rounds of 128
        with the adaptive top-up and checkpoints: K1, K2, K3 launched, the
@@ -159,7 +175,15 @@ nvcc per source, all started together; sm_90a), then:
        1e-5 relative, ms an epoch of both; the trained GRUs' predictions
        of 16 x 18 rows against rnn_apply's within 1e-4, ms of both;
        [compare2x2 cli] the CLI at --fast --blocks 2 --epochs 5: its
-       artifacts written and read, K3 and K2 launched on every SNR.
+       artifacts written and read, K3 and K2 launched on every SNR;
+       [dist nccl] a torch.distributed process group of world size 1 on
+       NCCL from the variables torchrun sets (maybe_init_distributed):
+       run_nbf_curve (mimo_4x8_nbf, 8 blocks) and run_cdl_curve
+       (mimo_4x8_cdl, 16 blocks) over it identical to the same calls
+       without a group, sharded_fir at one rank within 1e-6 of the FIR,
+       the group destroyed afterwards; [scaling] the scaling CLI
+       (experiments/scaling.py --fast) at one NCCL rank, its --out read
+       (one card: no scaling efficiency).
      No QC path may reach the graph decoder (its count stays 0);
   8. one JSON line listing the kernels (launches on the main paths, error
      against the plain version, times, bound: the largest of bytes over the
@@ -250,8 +274,8 @@ def main() -> None:
         make_code
     from esn_ofdm_mimo_tpu_torch.ldpc.decode import ldpc_decode_bp_plain
     from esn_ofdm_mimo_tpu_torch.models import esn_cuda, esn_states_cuda
-    from esn_ofdm_mimo_tpu_torch.models.esn import (EsnScale, esn_predict,
-                                                    esn_states,
+    from esn_ofdm_mimo_tpu_torch.models.esn import (EsnScale, esn_fit,
+                                                    esn_predict, esn_states,
                                                     init_reservoir,
                                                     scale_inputs)
     import dataclasses
@@ -263,7 +287,10 @@ def main() -> None:
     from esn_ofdm_mimo_tpu_torch.parallel import (cdl_snr_point,
                                                   nbf_snr_point,
                                                   run_cdl_curve)
-    from esn_ofdm_mimo_tpu_torch.pipelines.common import DETECTORS
+    from esn_ofdm_mimo_tpu_torch.models.esn_mimo import (
+        esn_detect_symbols_per_block, train_mimo_esn_per_block)
+    from esn_ofdm_mimo_tpu_torch.pipelines.common import DETECTORS, \
+        synth_block
     from esn_ofdm_mimo_tpu_torch.utils import build, rng
 
     sys.path.insert(0, os.path.join(os.path.dirname(
@@ -688,6 +715,7 @@ def main() -> None:
     k2_plain_ms = cuda_ms(lambda: esn_predict(
         res, scale, Wt_out, inputs, n_forget), 2)
     k2_work = predict_work(res, inputs, Wt_out, pk)
+    # 8.631 ms: this shape on an H100 (700 W) before the carried prologue
     kernels["esn_predict"] = _entry(
         "esn_predict", "esn_predict.cu",
         "esn_ofdm_mimo_tpu/models/esn_pallas.py:101", k2_err, k2_ms,
@@ -695,7 +723,9 @@ def main() -> None:
     _log(f"[K2] rows {B} T {T} n_res {res.Wt.shape[0]} G {G} Dg {B // G} "
          f"({k2_tiling(res, inputs, Wt_out)}): "
          f"max abs err {k2_err:.3e} | noise RMS kernel {r_k:.4e} plain "
-         f"{r_p:.4e} | kernel {k2_ms:.3f} ms plain {k2_plain_ms:.3f} ms "
+         f"{r_p:.4e} | kernel {k2_ms:.3f} ms (zero carry; before the "
+         f"carried prologue 8.631, ratio {k2_ms / 8.631:.4f}) plain "
+         f"{k2_plain_ms:.3f} ms "
          f"bound {kernels['esn_predict']['bound_ms']:.4f} ms "
          f"({k2_work[1] / 1e9:.1f} GFLOP)")
 
@@ -959,7 +989,63 @@ def main() -> None:
          f"{k4_ms:.3f} ms, K2 in the same turns {k2_pair_ms:.3f} ms, plain "
          f"{k2_plain_ms:.3f} ms, bound "
          f"{kernels['esn_predict_grouped']['bound_ms']:.4f} ms")
-    del pg, pk, pp, inputs
+
+    # ---- 5a. K2 and K4 carried: continuation from a fit's last state -------
+    # The carry of esn_fit(return_carry=True) at the flagship pilot shape
+    # (128 blocks, T = 138, n_res 300; K3 harvests), block g's on its 74
+    # detect rows, with K2's readouts above: predict from (s0, o0) instead
+    # of zeros, against plain esn_predict(init_carry=...) at atol 1e-4 /
+    # rtol 1e-3, then a batch no tile height divides (9,435 rows, a carry of
+    # its own a row). The fit's own readouts are not used: fitted to random
+    # teachers they are large, and the feedback loop then amplifies the
+    # rounding of either version beyond the tolerance (4.4e-4 measured, as
+    # much at zero carry)
+    x_fit = torch.randn(G, T, inputs.shape[2], generator=gen, device=dev)
+    d_fit = 0.5 * torch.randn(G, T, Wt_out.shape[2], generator=gen,
+                              device=dev)
+    _, (s_last, o_last) = esn_fit(res, scale, x_fit, d_fit, n_forget, 0,
+                                  return_carry=True)
+    carry = tuple(c.repeat_interleave(B // G, 0).contiguous()
+                  for c in (s_last, o_last))
+    pp_c = esn_predict(res, scale, Wt_out, inputs, n_forget,
+                       init_carry=carry)
+    _check(float((pp_c - esn_predict(res, scale, Wt_out, inputs, n_forget))
+                 .abs().max()) > 1e-3,
+           "the carry does not change the plain prediction")
+    for rd, tag in (("per_row", "K2"), ("grouped", "K4")):
+        run_c = lambda rd=rd: esn_cuda.esn_predict_cuda(         # noqa: E731
+            res, scale, Wt_out, inputs, n_forget, 0, readout=rd,
+            init_carry=carry)
+        run_z = lambda rd=rd: esn_cuda.esn_predict_cuda(         # noqa: E731
+            res, scale, Wt_out, inputs, n_forget, 0, readout=rd)
+        err_c = close(run_c(), pp_c, f"{tag} carried")
+        # in turns on one card: carried, zero carry, zero carry, carried
+        t = [cuda_ms(f, 3) for f in (run_c, run_z, run_z, run_c)]
+        ms_c, ms_z = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        plain_c = cuda_ms(lambda: esn_predict(
+            res, scale, Wt_out, inputs, n_forget, init_carry=carry), 1)
+        n_b, ops_c = predict_work(res, inputs, Wt_out, pp_c)
+        b_ms, by = _bound(n_b + 4 * (carry[0].numel() + carry[1].numel()),
+                          ops_c)
+        _log(f"[{tag} carried] rows {B} T {T} n_res {res.Wt.shape[0]} G {G} "
+             f"Dg {B // G}, carry of esn_fit(return_carry=True) at {G} x {T} "
+             f"({k2_tiling(res, inputs, Wt_out, grouped=rd == 'grouped')}): "
+             f"max abs err {err_c:.3e} | kernel {ms_c:.3f} ms, zero carry in "
+             f"the same turns {ms_z:.3f} ms, plain {plain_c:.3f} ms, bound "
+             f"{b_ms:.4f} ms ({by})")
+    B_c = B - 37
+    W_c = 0.02 * torch.randn(B_c, Wt_out.shape[1], Wt_out.shape[2],
+                             generator=gen, device=dev)
+    carry_r = (carry[0][:B_c] + 0.05 * torch.randn(
+        B_c, carry[0].shape[1], generator=gen, device=dev), carry[1][:B_c])
+    err_cr = close(
+        esn_cuda.esn_predict_cuda(res, scale, W_c, inputs[:B_c].contiguous(),
+                                  n_forget, 0, init_carry=carry_r),
+        esn_predict(res, scale, W_c, inputs[:B_c], n_forget,
+                    init_carry=carry_r), "K2 carried ragged")
+    _log(f"[K2 carried ragged] rows {B_c}, one readout and one carry a row "
+         f"({k2_tiling(res, inputs[:B_c], W_c)}): max abs err {err_cr:.3e}")
+    del pg, pk, pp, pp_c, inputs, W_c, carry_r
 
     # ---- 5b. K1-layered: the layered BP decoder vs its plain version --------
     kw_l = dict(kw, schedule="layered", max_iter=50)
@@ -1333,6 +1419,114 @@ def main() -> None:
     _log(f"[main newton] calib.fit_method newton: coded BER {coded_nt}, GD "
          f"{coded_gd} | fit ms newton {ph_nt['fit']:.3f} GD "
          f"{ph_gd['fit']:.3f}")
+
+    # ---- rng_mode="block": one reservoir a block, each block's ESN alone ----
+    def block_mode(c, what: str, G_b: int, run_point, n_fits: int,
+                   n_dets: int, keys_b):
+        """The point of config c in block mode on one round of G_b blocks
+        (counted: K3 n_fits and K2 n_dets times a block of each of its
+        rounds), against rounds of G_b / 2 x 2 (bit-identical counters);
+        block 2's reservoir and readouts alone against a batch of 4; each
+        block's ESN ms. run_point(keys (R, G, 2) for each of its phases,
+        timings) -> (counters, uncoded BER dict)."""
+        c_b = dataclasses.replace(c, esn=dataclasses.replace(
+            c.esn, rng_mode="block"))
+        (pt, ber), ph, wall, la = count_run(
+            lambda ph: run_point(c_b, [k.reshape(1, G_b, 2) for k in keys_b],
+                                 ph),
+            ("esn_predict", "esn_states"), what)
+        n_rounds = len(keys_b)
+        _check(la["esn_states"] == n_fits * G_b * n_rounds
+               and la["esn_predict"] == n_dets * G_b * n_rounds,
+               f"{what}: launches {la}, expected K3 {n_fits} and K2 {n_dets} "
+               f"a block")
+        pt2, _ = run_point(c_b, [k.reshape(2, G_b // 2, 2) for k in keys_b],
+                           {})
+        _check(same(pt2, pt), f"{what}: the counters of rounds of "
+                              f"{G_b // 2} x 2 differ from one round of "
+                              f"{G_b}: {pt2} {pt}")
+        for d, v in ber.items():
+            _check(0.0 < v < 0.5, f"{what}: {d} uncoded BER {v} not in "
+                                  f"(0, 0.5)")
+        k4 = rng.as_keys(keys_b[0][:4], dev)
+        st4, (y4, x4) = synth_block(c_b, 12.0, k4, return_pilot=True)
+        st1 = synth_block(c_b, 12.0, k4[2:3])
+        for name in ("Wt", "W_in_t", "W_fb_t"):
+            _check(torch.equal(getattr(st1.reservoir, name)[0],
+                               getattr(st4.reservoir, name)[2]),
+                   f"{what}: block 2's reservoir {name} alone differs")
+        for name in ("Wt_out_m", "Wt_out_f"):
+            if getattr(st4, name) is not None:
+                _check(torch.equal(getattr(st1, name)[0],
+                                   getattr(st4, name)[2]),
+                       f"{what}: block 2's {name} alone differs")
+        # each block's ESN: its fit (K3 on one row, the readout solve) and
+        # its detection (K2 on D rows), 4 blocks in turn
+        delay_b = c.esn.shared_delay(c.ofdm.isi_duration)
+        D_b, cp_b = c.data_symbols_per_block, c.ofdm.cp_len
+        y_d = torch.randn(4, D_b, c.channel.n_rx, y4.shape[-1],
+                          dtype=torch.complex64, generator=gen, device=dev)
+        seeds = list(range(4))
+        fit_ms = 1e3 * wall_s(lambda: train_mimo_esn_per_block(
+            st4.reservoir, st4.scale_m, y4, x4, delay_b, cp_b, seeds)) / 4
+        det_ms = 1e3 * wall_s(lambda: esn_detect_symbols_per_block(
+            st4.reservoir, st4.scale_m, st4.Wt_out_m, y_d, delay_b, cp_b,
+            c.ofdm.n_subcarriers, 1.0, seeds)) / 4
+        draw_ms = 1e3 * wall_s(lambda: [init_reservoir(
+            k, 2 * c.channel.n_rx, 2 * c.channel.n_tx, c.esn.n_reservoir,
+            c.esn.spectral_radius, c.esn.sparsity, c.esn.noise)
+            for k in k4]) / 4
+        _log(f"[{what}] {c.name} rng_mode block, 12 dB, {G_b} blocks x "
+             f"{n_rounds} round(s): uncoded BER {ber} | launches {la} (K3 "
+             f"{n_fits} and K2 {n_dets} a block) | the counters of rounds "
+             f"of {G_b // 2} x 2 identical; block 2 alone: reservoir and "
+             f"readouts identical to a batch of 4")
+        _log(f"[{what}] phases ms "
+             f"{json.dumps({k: round(v, 3) for k, v in ph.items()})} wall "
+             f"{1e3 * wall:.3f} ms | ESN ms a block: reservoir draw "
+             f"{draw_ms:.3f}, fit {fit_ms:.3f} (K3 on 1 row, the readout "
+             f"solve), detect {det_ms:.3f} (K2 on {D_b} rows)")
+        return wall
+
+    def same(a, b) -> bool:
+        """Counters, calibrators and curves equal, bit for bit."""
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, np.ndarray):
+            return np.array_equal(a, b)
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        if dataclasses.is_dataclass(a):
+            return same(dataclasses.asdict(a), dataclasses.asdict(b))
+        return a == b
+
+    def wall_s(fn) -> float:
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return time.perf_counter() - t0
+
+    def cdl_point(c_b, keys_rd, ph):
+        pt = cdl_snr_point(c_b, 12.0, keys_rd[0], keys_rd[1], timings=ph)
+        bits = pt.cal_total_bits + pt.counts.total_bits
+        return pt, {d: (pt.cal_bit_errors[d] + pt.counts.bit_errors[d])
+                    / bits for d in pt.cal_bit_errors}
+
+    def nbf_point(c_b, keys_rd, ph):
+        pt = nbf_snr_point(c_b, 12.0, keys_rd[0], timings=ph)
+        return pt, {d: v / pt.total_bits for d, v in pt.bit_errors.items()}
+
+    keys_bm = rng.block_keys(root, 0, torch.arange(32)).numpy()
+    block_mode(cfg, "block main", 16, cdl_point,
+               1 + (cfg.esn.train_ebno_fixed_db is not None), 1,
+               (keys_bm[:16], keys_bm[16:]))
+    block_mode(nbf, "block nbf", 8, nbf_point,
+               1 + (nbf.esn.train_ebno_fixed_db is not None),
+               1 + (nbf.esn.train_ebno_fixed_db is not None),
+               (rng.block_keys(root, 1, torch.arange(8)).numpy(),))
 
     # the micro-benchmark's predict group: the path that launches K5
     _, _, _, la_5 = count_run(
@@ -1956,6 +2150,101 @@ def main() -> None:
         for line in so.getvalue().splitlines():
             if line.startswith(("[2x2]", "[warn]")):
                 _log(f"[compare2x2 cli] {line}")
+
+        # ---- torch.distributed at one NCCL rank ------------------------------
+        # [dist nccl]: a process group of world size 1 from the variables
+        # torchrun sets, through maybe_init_distributed(); the curves over
+        # its one rank (counters through all_reduce, calibration pairs
+        # through all_gather) against the same calls without a group, bit
+        # for bit; sharded_fir at one rank against the FIR; the group is
+        # destroyed afterwards
+        import socket
+
+        import torch.distributed as dist
+        from esn_ofdm_mimo_tpu_torch.experiments import scaling as scale_cli
+        from esn_ofdm_mimo_tpu_torch.ops import apply_fir_channel
+        from esn_ofdm_mimo_tpu_torch.parallel import (maybe_init_distributed,
+                                                      run_nbf_curve,
+                                                      trials_mesh)
+        from esn_ofdm_mimo_tpu_torch.parallel.seqshard import sharded_fir
+
+        def free_port() -> int:
+            with socket.socket() as so_:
+                so_.bind(("localhost", 0))
+                return so_.getsockname()[1]
+
+        env_dist = {"MASTER_ADDR": "localhost", "WORLD_SIZE": "1",
+                    "RANK": "0"}
+        os.environ.update(env_dist, MASTER_PORT=str(free_port()))
+        try:
+            t0 = time.perf_counter()
+            _check(maybe_init_distributed() and dist.get_backend() == "nccl"
+                   and dist.get_world_size() == 1,
+                   "dist nccl: no NCCL process group of one rank")
+            init_s = time.perf_counter() - t0
+            mesh = trials_mesh()
+            c_n = dataclasses.replace(nbf, ebno_db=(12.0,))
+            c_c = dataclasses.replace(cfg, ebno_db=(12.0,))
+            curves = {}
+            for tag, m in (("group", mesh), ("none", None)):
+                curves[tag], _, wall_d, la_d = count_run(
+                    lambda ph, m=m: (
+                        run_nbf_curve(c_n, 8, blocks_per_round=8,
+                                      progress=None, mesh=m),
+                        run_cdl_curve(c_c, 16, blocks_per_round=8,
+                                      progress=None, mesh=m)),
+                    ("bp_decode", "esn_predict", "esn_states"),
+                    f"dist nccl {tag}")
+                _log(f"[dist nccl] {'one-rank group' if m else 'no group'}: "
+                     f"run_nbf_curve mimo_4x8_nbf 12 dB 8 blocks, "
+                     f"run_cdl_curve mimo_4x8_cdl 12 dB 16 blocks (1 cal + 1 "
+                     f"decode round of 8) | wall {1e3 * wall_d:.1f} ms | "
+                     f"launches {la_d}")
+            _check(same(curves["group"], curves["none"]),
+                   "dist nccl: the curves over the group differ from those "
+                   "without one")
+            taps = torch.randn(8, 4, 8, dtype=torch.complex64, generator=gen,
+                               device=dev)
+            xs_d = torch.randn(4, 4096, dtype=torch.complex64, generator=gen,
+                               device=dev)
+            y_g = sharded_fir(taps, xs_d, mesh.group)
+            y_f = apply_fir_channel(taps, xs_d)
+            err_f = float((y_g - y_f).abs().max() / y_f.abs().max())
+            _check(err_f <= 1e-6, f"dist nccl: sharded_fir at one rank is "
+                                  f"{err_f} from the FIR (relative)")
+            _log(f"[dist nccl] NCCL group of world size 1 in {init_s:.2f} s: "
+                 f"curves over it identical to those without a group; "
+                 f"sharded_fir (8 x 4 taps of 8, 4,096 samples) within "
+                 f"{err_f:.2e} of the FIR (relative, tolerance 1e-6) | "
+                 f"nbf {curves['group'][0].ber} cdl uncoded "
+                 f"{curves['group'][1][0]['ber_uncoded']}")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        _check(not dist.is_initialized(), "dist nccl: the group survived")
+
+        # [scaling]: the scaling CLI at --fast under the same variables, one
+        # rank (it starts and destroys its own group)
+        out_sc = os.path.join(tmp, "scaling.json")
+        os.environ["MASTER_PORT"] = str(free_port())
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as so:
+                _, _, wall_sc, la_sc = count_run(
+                    lambda ph: scale_cli.main(["--fast", "--out", out_sc]),
+                    ("esn_predict", "esn_states"), "scaling")
+        finally:
+            for k in (*env_dist, "MASTER_PORT"):
+                os.environ.pop(k, None)
+        with open(out_sc) as f:
+            sc = json.load(f)
+        _check(list(sc) == ["1"] and sc["1"]["blocks_per_s"] > 0
+               and not dist.is_initialized(),
+               f"scaling: unexpected --out {sc}")
+        _log(f"[scaling] CLI --fast (mimo_2x2_nbf, 2 blocks a round, one "
+             f"NCCL rank): {sc['1']['blocks_per_s']:.2f} blocks/s, "
+             f"{1e3 * sc['1']['seconds_per_round']:.1f} ms a round | wall "
+             f"{1e3 * wall_sc:.1f} ms | launches {la_sc} (one H100: no "
+             f"scaling efficiency)")
 
     if "--profile" in sys.argv[1:]:
         _profile_main_path(

@@ -5,9 +5,10 @@
 // runs all T steps of
 //     s' = tanh(W s + [W_in | W_fb] [u_t; o]) + noise * (U - 0.5)
 //     o' = sum_f Wout[g, f, :] * [s'; u_t][f],   g = row / Dg
-// from s = 0, o = 0, and writes o / teacher_scaling for t >= n_forget. The
+// from s = 0, o = 0, or from a carried (s0, o0) per row (pyESN's
+// continuation), and writes o / teacher_scaling for t >= n_forget. The
 // plain version it is held against is esn_ofdm_mimo_tpu_torch/models/esn.py
-// (esn_predict). The kernel itself is esn_predict_core.cuh, shared with the
+// (esn_predict, init_carry). The kernel itself is esn_predict_core.cuh, shared with the
 // grouped-readout variant K4 (esn_predict_grouped.cu).
 //
 // What bounds it on the H100. At the flagship shape (9,472 rows, T = 138,
@@ -72,13 +73,14 @@ extern "C" long long esn_predict_smem_bytes(int n_res, int n_in, int n_out,
 }
 
 extern "C" int esn_predict_launch(const float* u_fm, const float* wc,
-                                  const float* wout, float* out, int B, int T,
-                                  int n_res, int n_in, int n_out, int Dg,
-                                  int n_forget, int rows, int height,
+                                  const float* wout, float* out,
+                                  const float* s0, const float* o0, int B,
+                                  int T, int n_res, int n_in, int n_out,
+                                  int Dg, int n_forget, int rows, int height,
                                   float noise, float teacher_scaling,
                                   unsigned long long seed, void* stream) {
-  return esn_predict::launch_any<false>(u_fm, wc, wout, out, B, T, n_res,
-                                        n_in, n_out, Dg, n_forget, rows,
-                                        height, 0, noise, teacher_scaling,
-                                        seed, stream);
+  return esn_predict::launch_any<false>(u_fm, wc, wout, out, s0, o0, B, T,
+                                        n_res, n_in, n_out, Dg, n_forget,
+                                        rows, height, 0, noise,
+                                        teacher_scaling, seed, stream);
 }

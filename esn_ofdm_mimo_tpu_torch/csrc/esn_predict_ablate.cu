@@ -65,8 +65,8 @@ extern "C" int esn_predict_ablate_launch(
 #define ABLATE_CASE(MASK)                                                    \
   case MASK:                                                                 \
     return launch<kNj4, kHeight, false, MASK>(                               \
-        u_fm, wc, wout, out, B, T, n_res, n_in, n_out, Dg, n_forget, rows,   \
-        0, noise, teacher_scaling, seed, s);
+        u_fm, wc, wout, out, nullptr, nullptr, B, T, n_res, n_in, n_out, Dg, \
+        n_forget, rows, 0, noise, teacher_scaling, seed, s);
   switch (off_mask) {
     ABLATE_CASE(0)
     ABLATE_CASE(kNoReadout)

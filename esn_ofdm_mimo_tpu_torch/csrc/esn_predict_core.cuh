@@ -9,7 +9,8 @@
 // For every batch row it runs all T steps of
 //     s' = tanh(W s + [W_in | W_fb] [u_t; o]) + noise * (U - 0.5)
 //     o' = sum_f Wout[g, f, :] * [s'; u_t][f],   g = row / Dg
-// from s = 0, o = 0, and writes o / teacher_scaling for t >= n_forget.
+// from s = s0[row], o = o0[row] (zero where the pointers are null: pyESN's
+// continuation=False), and writes o / teacher_scaling for t >= n_forget.
 //
 // Shared memory of a block (W = 4 or 8 warps, `rows` <= kH batch rows for
 // all T steps):
@@ -114,6 +115,8 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
                const float* __restrict__ wc,    // (K_pad, n_p)
                const float* __restrict__ wout,  // (G, n_res + n_in, n_out)
                float* __restrict__ out,         // (B, T - n_forget, n_out)
+               const float* __restrict__ s0,    // (B, n_res) or null
+               const float* __restrict__ o0,    // (B, n_out) or null
                int B, int T, int n_res, int n_in, int n_out, int Dg,
                int n_forget, int rows, int P, float noise,
                float teacher_scaling, unsigned long long seed) {
@@ -210,6 +213,18 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
     const int r = i % kH, f = i / kH;
     if (r < n_valid) IO[f * kH + r] = u_fm[(size_t)f * B + row0 + r];
   }
+  // the carried state and output of the block's real rows, read row-major
+  // (coalesced); the padded rows of a ragged last block stay zero
+  if (s0 != nullptr)
+    for (int i = tid; i < n_valid * n_res; i += kThreads) {
+      const int r = i / n_res, j = i % n_res;
+      S[j * kH + r] = s0[(size_t)(row0 + r) * n_res + j];
+    }
+  if (o0 != nullptr)
+    for (int i = tid; i < n_valid * n_out; i += kThreads) {
+      const int r = i / n_out, k = i % n_out;
+      IO[(n_in + k) * kH + r] = o0[(size_t)(row0 + r) * n_out + k];
+    }
   __syncthreads();
 
   int st = 0;
@@ -388,7 +403,7 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
 
 template <int NJ4, int kH, bool kGrouped, int kOff = 0>
 int launch(const float* u_fm, const float* wc, const float* wout, float* out,
-           int B, int T, int n_res, int n_in, int n_out, int Dg, int n_forget,
+           const float* s0, const float* o0, int B, int T, int n_res, int n_in, int n_out, int Dg, int n_forget,
            int rows, int P, float noise, float teacher_scaling,
            unsigned long long seed, cudaStream_t stream) {
   const size_t smem = smem_bytes(n_res, n_in, n_out, kH, kGrouped ? P : 0);
@@ -407,8 +422,8 @@ int launch(const float* u_fm, const float* wc, const float* wout, float* out,
   if (e != cudaSuccess) return (int)e;
   const int blocks = (B + rows - 1) / rows;
   predict_kernel<NJ4, kH, kGrouped, kOff><<<blocks, threads_of(NJ4, kH), smem, stream>>>(
-      u_fm, wc, wout, out, B, T, n_res, n_in, n_out, Dg, n_forget, rows, P,
-      noise, teacher_scaling, seed);
+      u_fm, wc, wout, out, s0, o0, B, T, n_res, n_in, n_out, Dg, n_forget,
+      rows, P, noise, teacher_scaling, seed);
   return (int)cudaGetLastError();
 }
 
@@ -418,13 +433,13 @@ int launch(const float* u_fm, const float* wc, const float* wout, float* out,
 // more rows a block than the height, is refused.
 template <bool kGrouped>
 int launch_any(const float* u_fm, const float* wc, const float* wout,
-               float* out, int B, int T, int n_res, int n_in, int n_out,
+               float* out, const float* s0, const float* o0, int B, int T, int n_res, int n_in, int n_out,
                int Dg, int n_forget, int rows, int height, int P, float noise,
                float teacher_scaling, unsigned long long seed, void* stream) {
   if (B <= 0 || T <= n_forget) return 0;
   if (rows <= 0 || rows > height || n_res <= 0 || Dg <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define ESN_ARGS u_fm, wc, wout, out, B, T, n_res, n_in, n_out, Dg, n_forget, rows, P, noise, teacher_scaling, seed, s
+#define ESN_ARGS u_fm, wc, wout, out, s0, o0, B, T, n_res, n_in, n_out, Dg, n_forget, rows, P, noise, teacher_scaling, seed, s
 #define ESN_CASE(N)                                                  \
   case N:                                                            \
     if (height == 20) return launch<N, 20, kGrouped>(ESN_ARGS);     \

@@ -39,8 +39,9 @@ extern "C" long long esn_predict_grouped_smem_bytes(int n_res, int n_in,
 }
 
 extern "C" int esn_predict_grouped_launch(const float* u_fm, const float* wc,
-                                          const float* wout, float* out, int B,
-                                          int T, int n_res, int n_in,
+                                          const float* wout, float* out,
+                                          const float* s0, const float* o0,
+                                          int B, int T, int n_res, int n_in,
                                           int n_out, int Dg, int n_forget,
                                           int rows, int height, float noise,
                                           float teacher_scaling,
@@ -49,7 +50,8 @@ extern "C" int esn_predict_grouped_launch(const float* u_fm, const float* wc,
   if (Dg <= 1 || B % Dg || rows <= 0) return (int)cudaErrorInvalidValue;
   const int P = esn_predict::grouped_slots(B / Dg, Dg, rows);
   if (P > 4) return (int)cudaErrorInvalidValue;
-  return esn_predict::launch_any<true>(u_fm, wc, wout, out, B, T, n_res, n_in,
-                                       n_out, Dg, n_forget, rows, height, P,
-                                       noise, teacher_scaling, seed, stream);
+  return esn_predict::launch_any<true>(u_fm, wc, wout, out, s0, o0, B, T,
+                                       n_res, n_in, n_out, Dg, n_forget, rows,
+                                       height, P, noise, teacher_scaling, seed,
+                                       stream);
 }

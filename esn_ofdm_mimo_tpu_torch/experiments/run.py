@@ -9,6 +9,13 @@ calibration runs `run_cdl_curve` and writes `save_cdl_results`, the others
 `run_nbf_curve` and `save_nbf_results`; progress goes to
 `<outdir>/events.jsonl`. It runs on the GPU; `--device cpu` runs the plain
 PyTorch versions of the kernels (with `--fast`, a few minutes).
+
+Under torchrun (`torchrun --nproc_per_node=N -m
+esn_ofdm_mimo_tpu_torch.experiments.run ...`) it starts a process group
+(parallel/mesh.py:maybe_init_distributed; NCCL, one card a rank, or gloo
+with `--device cpu`), every rank runs its share of each round, and rank 0
+alone writes the artifacts, events and checkpoints; --blocks-per-device is
+then the blocks of a rank a round.
 """
 from __future__ import annotations
 
@@ -16,6 +23,9 @@ import argparse
 import dataclasses
 import time
 
+import torch.distributed as dist
+
+from ..parallel.mesh import maybe_init_distributed, trials_mesh
 from ..parallel.montecarlo import run_cdl_curve, run_nbf_curve
 from ..utils.checkpoint import SnrCheckpoint
 from ..utils.device import resolve_device
@@ -32,8 +42,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="Monte-Carlo blocks per SNR point "
                          "(default: reference-equivalent count)")
     ap.add_argument("--blocks-per-device", type=int, default=16,
-                    help="coherence blocks per round on the one GPU; BER "
-                         "is layout-invariant by key design")
+                    help="coherence blocks of a round on each rank (one "
+                         "GPU: the round); BER is layout-invariant by key "
+                         "design")
     ap.add_argument("--rounds-per-call", type=int, default=4,
                     help="Monte-Carlo rounds per call of an SNR point: the "
                          "rounds one adaptive top-up step adds, and the "
@@ -136,36 +147,52 @@ def main(argv=None) -> None:
     if ldpc:
         cfg = replace(cfg, ldpc=replace(cfg.ldpc, **ldpc))
     device = resolve_device(args.device)
+    started = not dist.is_initialized() and maybe_init_distributed(device)
+    try:
+        _run(cfg, args, device, trials_mesh())
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _run(cfg, args, device, mesh) -> None:
+    """The curve of `cfg` over the ranks of `mesh`; rank 0 writes."""
     outdir = args.outdir or f"results/{cfg.name}"
     blocks = args.blocks_per_snr or cfg.n_blocks
+    writer = mesh.rank == 0
     ckpt = SnrCheckpoint(outdir + "/ckpt") if args.resume else None
 
-    log = MetricsLogger(f"{outdir}/events.jsonl")
+    log = MetricsLogger(f"{outdir}/events.jsonl") if writer else None
     try:
-        log.log("run_start", preset=cfg.name, blocks_per_snr=blocks,
-                devices=1, L=cfg.ofdm.coherence_symbols)
+        if log:
+            log.log("run_start", preset=cfg.name, blocks_per_snr=blocks,
+                    devices=mesh.size, L=cfg.ofdm.coherence_symbols)
         t0 = time.time()
         curve_args = dict(
             blocks_per_round=args.blocks_per_device, seed=args.seed,
             device=device, checkpoint=ckpt,
-            progress=lambda msg: log.log("progress", msg=msg),
+            progress=(lambda msg: log.log("progress", msg=msg)) if log
+            else None,
             rounds_per_call=args.rounds_per_call,
             adaptive_min_errors=args.adaptive_min_errors,
             adaptive_max_blocks=args.adaptive_max_blocks,
-            adaptive_on_uncoded=args.adaptive_on_uncoded)
+            adaptive_on_uncoded=args.adaptive_on_uncoded, mesh=mesh)
         with debug_nan_checks(args.debug_nans), \
                 profile_trace(f"curve:{cfg.name}", trace_dir=args.trace):
             if cfg.calib.enabled:
-                save_cdl_results(outdir, cfg,
-                                 run_cdl_curve(cfg, blocks, **curve_args))
+                results = run_cdl_curve(cfg, blocks, **curve_args)
+                if writer:
+                    save_cdl_results(outdir, cfg, results)
             else:
-                save_nbf_results(outdir, cfg,
-                                 run_nbf_curve(cfg, blocks, **curve_args))
-        log.log("run_done", seconds=round(time.time() - t0, 1),
-                outdir=outdir)
+                results = run_nbf_curve(cfg, blocks, **curve_args)
+                if writer:
+                    save_nbf_results(outdir, cfg, results)
+        if log:
+            log.log("run_done", seconds=round(time.time() - t0, 1),
+                    outdir=outdir)
     finally:
-        log.close()
+        if log:
+            log.close()
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ base graph is a structure-exact surrogate (`NR_SURROGATE_CAVEAT`)."""
 
 from .code import (LdpcCode, QcInfo, make_code, make_pyldpc_ldpc,  # noqa: F401
                    make_qc_ldpc, make_regular_ldpc)
-from .encode import ldpc_encode  # noqa: F401
+from .encode import ldpc_encode, ldpc_extract_message  # noqa: F401
 from .decode import (ldpc_decode_bp, ldpc_decode_bp_counts,  # noqa: F401
                      ldpc_decode_bp_plain, llr_from_yobs)
 from .nr import (make_nr_ldpc, nr_encode, nr_decode_bp,  # noqa: F401

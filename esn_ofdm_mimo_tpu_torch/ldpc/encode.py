@@ -16,3 +16,7 @@ def ldpc_encode(code: LdpcCode, u: torch.Tensor) -> torch.Tensor:
     parity = torch.remainder(u.to(torch.float32) @ P.T, 2.0)
     return torch.cat([parity.to(torch.int8), u.to(torch.int8)], dim=-1)
 
+
+def ldpc_extract_message(code: LdpcCode, cw: torch.Tensor) -> torch.Tensor:
+    """codeword (..., n) -> info bits (..., k), the last k positions."""
+    return cw[..., code.m:]

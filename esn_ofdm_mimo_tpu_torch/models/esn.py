@@ -13,12 +13,16 @@ Weights are stored transposed relative to pyESN (row-major `x @ W`):
 `esn_predict` is the plain version of the CUDA predict kernels
 (models/esn_cuda.py), `esn_predict_ablate` that of their ablation builds,
 `esn_states` that of the CUDA state-harvest kernel
-(models/esn_states_cuda.py). State noise comes from a `torch.Generator`:
-the JAX package draws it from its own stream (`rbg`), so only its
-distribution is shared.
+(models/esn_states_cuda.py). `esn_fit` harvests its states through that
+kernel's wrapper, which runs `esn_states` on CPU tensors; with
+return_carry it also returns pyESN's (laststate, lastoutput) pair, from
+which `esn_predict(..., init_carry=...)` continues (continuation=True).
+State noise comes from a `torch.Generator`: the JAX package draws it from
+its own stream (`rbg`), so only its distribution is shared.
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple
 
@@ -157,6 +161,45 @@ def _readout_lstsq(ext: torch.Tensor, tgt: torch.Tensor,
     return extT @ z
 
 
+def esn_fit(res: EsnReservoir, scale: EsnScale, inputs: torch.Tensor,
+            outputs: torch.Tensor, n_forget: int, seed: int = 0,
+            rel_jitter: float = 1e-7, return_carry: bool = False):
+    """Train the readouts of B sequences that share one reservoir: inputs
+    (B, T, n_in) and outputs (B, T, n_out) raw -> Wt_out (B, n_res + n_in,
+    n_out), pyESN's W_out transposed. The states come from the CUDA
+    state-harvest kernel on the card (its plain version on the CPU), state
+    noise seeded with `seed`; the scaled inputs are appended and the first
+    `n_forget` rows left out of the solve (pyESN's `transient`).
+
+    With return_carry=True it also returns (laststate (B, n_res),
+    lastoutput_scaled (B, n_out)), pyESN's laststate / lastoutput
+    (pyESN.fit:194-197), the carry of `esn_predict(..., init_carry=...)`."""
+    from .esn_states_cuda import esn_states_cuda
+    teachers_scaled = outputs * scale.teacher_scaling
+    states = esn_states_cuda(res, scale, inputs, teachers_scaled, seed)
+    ext = torch.cat([states, scale_inputs(scale, inputs)], dim=-1)
+    Wt_out = _readout_lstsq(ext[:, n_forget:], teachers_scaled[:, n_forget:],
+                            rel_jitter)
+    if return_carry:
+        return Wt_out, (states[:, -1], teachers_scaled[:, -1])
+    return Wt_out
+
+
+def broadcast_carry(init_carry, B: int, n_res: int, n_out: int,
+                    like: torch.Tensor):
+    """(s0, o0) of shapes (n_res,) / (1, n_res) / (B, n_res) and likewise
+    for o0 -> contiguous (B, n_res), (B, n_out) tensors of `like`'s dtype
+    and device; None -> zeros (pyESN's continuation=False)."""
+    if init_carry is None:
+        z = functools.partial(torch.zeros, dtype=like.dtype,
+                              device=like.device)
+        return z(B, n_res), z(B, n_out)
+    s0, o0 = init_carry
+    return tuple(torch.as_tensor(x, dtype=like.dtype, device=like.device)
+                 .expand(B, n).contiguous()
+                 for x, n in ((s0, n_res), (o0, n_out)))
+
+
 ABLATE_PARTS = ("readout", "feedback", "noise", "tanh", "recurrence_dot")
 
 
@@ -164,16 +207,16 @@ def esn_predict_ablate(res: EsnReservoir, scale: EsnScale,
                        Wt_out: torch.Tensor, inputs: torch.Tensor,
                        n_forget: int, generator=None, *, readout: bool = True,
                        feedback: bool = True, noise: bool = True,
-                       tanh: bool = True, recurrence_dot: bool = True
-                       ) -> torch.Tensor:
+                       tanh: bool = True, recurrence_dot: bool = True,
+                       init_carry=None) -> torch.Tensor:
     """The predict recurrence, each part of its step behind a switch. With
     every part on (the default) it is `esn_predict`; with parts off it is
     the plain version of the CUDA ablation builds, for attributing the
     step's time (the JAX package's tools/bench_micro.py:_mk_kernel). What a
     part computes when off: readout -> o = s'[:n_out]; feedback -> the
     W_fb o term dropped; noise -> none; tanh -> s' = 0.5 * pre;
-    recurrence_dot -> pre = s + W_in u (+ W_fb o). Shapes as
-    `esn_predict`."""
+    recurrence_dot -> pre = s + W_in u (+ W_fb o). Shapes and init_carry
+    as `esn_predict`."""
     B, T, n_in = inputs.shape
     n_res = res.Wt.shape[0]
     G, _, n_out = Wt_out.shape
@@ -183,8 +226,7 @@ def esn_predict_ablate(res: EsnReservoir, scale: EsnScale,
     Wt_s, Wt_u = Wt_out[:, :n_res], Wt_out[:, n_res:]
     drive = u @ res.W_in_t
     o_in = (u.reshape(G, Dg * T, n_in) @ Wt_u).reshape(B, T, n_out)
-    s = torch.zeros(B, n_res, dtype=u.dtype, device=u.device)
-    o = torch.zeros(B, n_out, dtype=u.dtype, device=u.device)
+    s, o = broadcast_carry(init_carry, B, n_res, n_out, u)
     outs = torch.empty(B, T, n_out, dtype=u.dtype, device=u.device)
     for t in range(T):
         pre = (s @ res.Wt if recurrence_dot else s) + drive[:, t]
@@ -204,16 +246,21 @@ def esn_predict_ablate(res: EsnReservoir, scale: EsnScale,
 
 
 def esn_predict(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
-                inputs: torch.Tensor, n_forget: int, generator=None
-                ) -> torch.Tensor:
-    """Outputs with self-feedback from zero state (pyESN.predict,
-    continuation=False). The plain version of the CUDA predict kernel: the
-    step of `esn_predict_ablate` with every part on.
+                inputs: torch.Tensor, n_forget: int, generator=None,
+                init_carry=None) -> torch.Tensor:
+    """Outputs with self-feedback (pyESN.predict). The plain version of the
+    CUDA predict kernel: the step of `esn_predict_ablate` with every part
+    on.
 
     inputs (B, T, n_in) raw; Wt_out (G, F, n_out) grouped readouts with
     B % G == 0: readout g serves rows [g*Dg, (g+1)*Dg), Dg = B // G.
+    init_carry None starts from zero state and output (continuation=False,
+    pyESN.predict:238-241); the (laststate, lastoutput_scaled) pair of
+    `esn_fit(..., return_carry=True)`, broadcast over the rows, resumes
+    where the fit left off (continuation=True, :234-237).
     Returns (B, T - n_forget, n_out) unscaled outputs."""
-    return esn_predict_ablate(res, scale, Wt_out, inputs, n_forget, generator)
+    return esn_predict_ablate(res, scale, Wt_out, inputs, n_forget, generator,
+                              init_carry=init_carry)
 
 
 def key_seed(key: torch.Tensor) -> int:

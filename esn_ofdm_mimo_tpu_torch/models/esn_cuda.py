@@ -29,8 +29,8 @@ from typing import NamedTuple
 import torch
 
 from ..utils import build
-from .esn import (ABLATE_PARTS, EsnReservoir, EsnScale, esn_predict,
-                  esn_predict_ablate, scale_inputs)
+from .esn import (ABLATE_PARTS, EsnReservoir, EsnScale, broadcast_carry,
+                  esn_predict, esn_predict_ablate, scale_inputs)
 
 # Launches of K2, of K4 and of K5 since the counts were last reset (by the
 # caller).
@@ -173,15 +173,15 @@ def grouped_plan(B: int, G: int, n_res: int, n_in: int, n_out: int,
 @functools.lru_cache(maxsize=None)
 def _lib(readout: str):
     """(k_pad, smem_bytes, launch) of K2 (readout "per_row"), K4 ("grouped")
-    or K5 ("ablate", whose launch takes the mask of switched-off parts after
-    the tile height)."""
+    or K5 ("ablate", whose launch takes no carry pointers and takes the mask
+    of switched-off parts after the tile height)."""
     name = _SOURCES[readout]
     lib = build.load(name)
     k_pad, smem, launch = (getattr(lib, f"{name}_{fn}")
                            for fn in ("k_pad", "smem_bytes", "launch"))
     k_pad.argtypes = [ctypes.c_int] * 3
     smem.argtypes = [ctypes.c_int] * 5
-    launch.argtypes = ([ctypes.c_void_p] * 4
+    launch.argtypes = ([ctypes.c_void_p] * (4 if readout == "ablate" else 6)
                        + [ctypes.c_int] * (10 if readout == "ablate" else 9)
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong,
                           ctypes.c_void_p])
@@ -256,9 +256,12 @@ def choose_readout(B: int, G: int, n_res: int, n_in: int, n_out: int,
 
 def _launch(readout: str, plan: Tiling, res: EsnReservoir, scale: EsnScale,
             Wt_out: torch.Tensor, inputs: torch.Tensor, n_forget: int,
-            seed: int, slots: int = 0, extra: tuple = ()) -> torch.Tensor:
+            seed: int, slots: int = 0, extra: tuple = (),
+            init_carry=None) -> torch.Tensor:
     """Lay the operands out and launch one predict kernel on PyTorch's
-    current stream; raises where the launcher refuses or the launch fails."""
+    current stream; raises where the launcher refuses or the launch fails.
+    K2 and K4 take the carry's two device pointers (null for a zero carry),
+    K5 none."""
     B, T, n_in = inputs.shape
     n_res, (G, _, n_out) = res.Wt.shape[0], Wt_out.shape
     k_pad, smem, launch = _lib(readout)
@@ -272,10 +275,15 @@ def _launch(readout: str, plan: Tiling, res: EsnReservoir, scale: EsnScale,
     wout = Wt_out.contiguous()
     out = torch.empty(B, T - n_forget, n_out, dtype=torch.float32,
                       device=inputs.device)
+    # `carry` keeps the carried rows alive until the launch is queued
+    carry = (None if init_carry is None
+             else broadcast_carry(init_carry, B, n_res, n_out, inputs))
+    ptrs = () if readout == "ablate" else (None, None) if carry is None \
+        else tuple(c.data_ptr() for c in carry)
     rc = launch(
         u_fm.data_ptr(), Wc.data_ptr(), wout.data_ptr(), out.data_ptr(),
-        B, T, n_res, n_in, n_out, B // G, n_forget, plan.rows_per_block,
-        plan.height, *extra, float(res.noise), float(scale.teacher_scaling),
+        *ptrs, B, T, n_res, n_in, n_out, B // G, n_forget,
+        plan.rows_per_block, plan.height, *extra, float(res.noise), float(scale.teacher_scaling),
         int(seed) & (2**64 - 1),
         torch.cuda.current_stream(inputs.device).cuda_stream)
     if rc != 0:
@@ -288,20 +296,25 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
                      Wt_out: torch.Tensor, inputs: torch.Tensor,
                      n_forget: int, seed: int = 0,
                      readout: str = "per_row",
-                     tiling: Tiling | None = None) -> torch.Tensor:
+                     tiling: Tiling | None = None,
+                     init_carry=None) -> torch.Tensor:
     """Drop-in for models/esn.esn_predict: inputs (B, T, n_in) raw,
     Wt_out (G, n_res + n_in, n_out) grouped (B % G == 0) -> (B, T -
     n_forget, n_out) unscaled outputs. readout="grouped" launches K4 and
     needs `grouped_plan` to give a tiling. `tiling` replaces the one
     `predict_tiling` chooses for this card (for measurements of a tile
-    height; the launcher refuses a height it has no build for)."""
+    height; the launcher refuses a height it has no build for).
+    init_carry (s0, o0), rows (n_res,) / (n_out,) or (1, ·) broadcast or
+    (B, ·), starts each row there (`esn_fit(..., return_carry=True)`);
+    None from zeros."""
     global launches, launches_grouped
     if readout not in ("per_row", "grouped"):
         raise ValueError(f"unknown readout {readout!r}")
     if inputs.device.type == "cpu":
         gen = torch.Generator(device="cpu")
         gen.manual_seed(int(seed))
-        return esn_predict(res, scale, Wt_out, inputs, n_forget, gen)
+        return esn_predict(res, scale, Wt_out, inputs, n_forget, gen,
+                           init_carry=init_carry)
     if inputs.device.type != "cuda":
         raise ValueError(f"unsupported device {inputs.device}")
     B, T, n_in, n_res, G, n_out = _check_operands(res, Wt_out, inputs,
@@ -319,7 +332,7 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
         plan = predict_tiling(B, n_res, n_in, n_out, n_sm) \
             if tiling is None else tiling
     out = _launch(readout, plan, res, scale, Wt_out, inputs, n_forget, seed,
-                  slots)
+                  slots, init_carry=init_carry)
     if readout == "grouped":
         launches_grouped += 1
     else:

@@ -1,6 +1,6 @@
 """MIMO-OFDM ESN detection harness (port of esn_ofdm_mimo_tpu/models/
-esn_mimo.py, the shared-delay "batch" path; reference
-libs/helper_mimo_esn_generic.py:5-86 and OFDM_SISO_NBF_LDPC.py:430-448).
+esn_mimo.py; reference libs/helper_mimo_esn_generic.py:5-86 and
+OFDM_SISO_NBF_LDPC.py:430-448).
 
   * ESN input: 2*n_rx real channels (re, im per RX) of the received
     waveform y_cp, zero-padded by `delay` samples at the end;
@@ -15,20 +15,27 @@ models/esn_states_cuda.py), as the JAX package's fit does under
 ESN_TPU_IMPL=pallas; detection runs the CUDA predict kernel (K2, or K4
 under the JAX package's own switch ESN_TPU_PREDICT_READOUT=grouped where its
 condition holds; models/esn_cuda.py). CPU tensors run the plain versions.
+
+EsnConfig(rng_mode="block") takes `train_mimo_esn_per_block` and
+`esn_detect_symbols_per_block`: every block has its own reservoir (a
+`stack_reservoirs` of them) and its own noise seed, and runs alone, K3
+once (B = 1) for its fit and K2 once (its D rows, one readout) for each
+detection. A launch of one block is the same program whatever else the
+round holds, so a block's readout and detections do not depend on how the
+blocks are cut into rounds and ranks (the JAX package's `lax.map` over
+blocks, esn_mimo.py:146-211).
 """
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as Fn
 
 from ..utils import rng
-from .esn import (EsnReservoir, EsnScale, _readout_lstsq, key_seed,
-                  scale_inputs)
+from .esn import EsnReservoir, EsnScale, esn_fit, key_seed
 from .esn_cuda import choose_readout, esn_predict_cuda
-from .esn_states_cuda import esn_states_cuda
 
 
 def _interleave_reim(z: torch.Tensor) -> torch.Tensor:
@@ -67,11 +74,7 @@ def train_mimo_esn(res: EsnReservoir, scale: EsnScale, y_cp: torch.Tensor,
     on rows [n_forget:] (JAX esn_mimo.train_mimo_esn, its Pallas branch).
     `seed` seeds the state noise."""
     X_in, X_out = build_esn_io(y_cp, x_cp, delay)
-    n_forget = delay + cp_len
-    teachers_scaled = X_out * scale.teacher_scaling
-    states = esn_states_cuda(res, scale, X_in, teachers_scaled, seed)
-    ext = torch.cat([states, scale_inputs(scale, X_in)], dim=-1)
-    return _readout_lstsq(ext[:, n_forget:], teachers_scaled[:, n_forget:])
+    return esn_fit(res, scale, X_in, X_out, delay + cp_len, seed)
 
 
 def esn_detect_symbols(res: EsnReservoir, scale: EsnScale,
@@ -95,6 +98,54 @@ def esn_detect_symbols(res: EsnReservoir, scale: EsnScale,
     x_hat_td = _deinterleave_reim(pred[:, :N])             # (B, n_tx, N)
     X_hat = torch.fft.fft(x_hat_td, dim=-1) / N / power_scale
     return X_hat.transpose(-1, -2)
+
+
+def stack_reservoirs(reservoirs: Sequence[EsnReservoir]) -> EsnReservoir:
+    """B reservoirs of one shape and noise -> one EsnReservoir whose weights
+    have a leading block axis (rng_mode="block")."""
+    return EsnReservoir(*(torch.stack(w) for w in zip(
+        *(r[:3] for r in reservoirs))), noise=reservoirs[0].noise)
+
+
+def block_reservoir(res_b: EsnReservoir, b: int) -> EsnReservoir:
+    """Block b's reservoir of a stacked one."""
+    return res_b._replace(Wt=res_b.Wt[b], W_in_t=res_b.W_in_t[b],
+                          W_fb_t=res_b.W_fb_t[b])
+
+
+def train_mimo_esn_per_block(res_b: EsnReservoir, scale: EsnScale,
+                             y_cp: torch.Tensor, x_cp: torch.Tensor,
+                             delay: int, cp_len: int, seeds: Sequence[int]
+                             ) -> torch.Tensor:
+    """The fit of rng_mode="block" (JAX train_mimo_esn_per_block): block b
+    fits on its own reservoir block_reservoir(res_b, b), state noise seeded
+    with seeds[b], alone: y_cp (B, n_rx, T), x_cp (B, n_tx, T) -> Wt_out
+    (B, F, 2*n_tx), one K3 launch and one readout solve a block."""
+    return torch.cat([
+        train_mimo_esn(block_reservoir(res_b, b), scale, y_cp[b:b + 1],
+                       x_cp[b:b + 1], delay, cp_len, int(seeds[b]))
+        for b in range(y_cp.shape[0])])
+
+
+def esn_detect_symbols_per_block(res_b: EsnReservoir, scale: EsnScale,
+                                 Wt_out: torch.Tensor, y_cp: torch.Tensor,
+                                 delay: int, cp_len: int,
+                                 n_subcarriers: int, power_scale: float,
+                                 seeds: Sequence[int]) -> torch.Tensor:
+    """The detection of rng_mode="block" (JAX esn_detect_symbols_per_block):
+    y_cp (B, D, n_rx, N+cp) -> X_hat (B, D, N, n_tx); block b's D symbols
+    run on its reservoir and readout Wt_out[b], state noise seeded with
+    seeds[b], one K2 launch a block."""
+    N = n_subcarriers
+    outs = []
+    for b in range(y_cp.shape[0]):
+        X_in = build_esn_input(y_cp[b], delay)
+        pred = esn_predict_cuda(block_reservoir(res_b, b), scale,
+                                Wt_out[b:b + 1], X_in, delay + cp_len,
+                                int(seeds[b]))
+        X_hat = torch.fft.fft(_deinterleave_reim(pred[:, :N]), dim=-1)
+        outs.append((X_hat / N / power_scale).transpose(-1, -2))
+    return torch.stack(outs)
 
 
 def esn_nmse(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,

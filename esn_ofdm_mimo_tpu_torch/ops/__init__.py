@@ -9,9 +9,11 @@ from .qam import (  # noqa: F401
 from .ofdm import ofdm_modulate, ofdm_demodulate, add_cp, remove_cp  # noqa: F401
 from .pa import rapp_pa, clip_amplitude  # noqa: F401
 from .channel import (  # noqa: F401
-    exp_pdp, draw_exp_pdp_taps, draw_flat_awgn_tap, draw_tdl_taps, awgn,
+    exp_pdp, draw_exp_pdp_taps, draw_flat_awgn_tap, draw_tdl_taps,
+    draw_cdlb_taps, awgn,
     apply_fir_channel, taps_to_freq_response)
 from .analytics import SvdMetrics, channel_svd_metrics  # noqa: F401
-from .chanest import ls_comb_estimate, mmse_refine_td, estimate_channel  # noqa: F401
+from .chanest import (ls_comb_estimate, mmse_refine_td,  # noqa: F401
+                      estimate_channel, channel_freq_correlation)
 from .equalize import equalizer_weights, apply_equalizer  # noqa: F401
 from .llr import qam_llrs_maxlog, est_sigma2_from_decision  # noqa: F401

@@ -59,3 +59,19 @@ def estimate_channel(Y_ls, X_ls_comb, power_scale: float, n_tx: int,
     """LS + MMSE estimates; returns (H_ls, H_mmse)."""
     H_ls = ls_comb_estimate(Y_ls, X_ls_comb, power_scale, n_tx)
     return H_ls, mmse_refine_td(H_ls, isi_duration, mmse_scaler)
+
+
+def channel_freq_correlation(pdp: torch.Tensor, n_subcarriers: int
+                             ) -> torch.Tensor:
+    """The frequency-domain channel correlation of a power-delay profile
+    pdp (isi,): R_H[k, l] = sum_tap pdp[tap] exp(-j 2 pi (k - l) tap / N),
+    an (N, N) complex64 Hermitian Toeplitz matrix (the reference's
+    ComputeChannelCorrMatrix, libs/HelpFunc.py:41-62, which no script of
+    the reference calls)."""
+    pdp = torch.as_tensor(pdp, dtype=torch.float32)
+    taps = torch.arange(pdp.shape[0], dtype=torch.float32, device=pdp.device)
+    k = torch.arange(n_subcarriers, device=pdp.device)
+    diff = (k[:, None] - k[None, :]).to(torch.float32)
+    ang = -2.0 * torch.pi * diff[..., None] * taps / n_subcarriers
+    return torch.complex((pdp * torch.cos(ang)).sum(-1),
+                         (pdp * torch.sin(ang)).sum(-1))

@@ -145,6 +145,15 @@ def draw_tdl_taps(keys: torch.Tensor, n_rx: int, n_tx: int,
     return h / torch.sqrt(torch.clamp_min(power, 1e-30))
 
 
+def draw_cdlb_taps(keys: torch.Tensor, n_rx: int, n_tx: int,
+                   isi_duration: int, sample_rate_hz: float,
+                   delay_spread_ns: float) -> torch.Tensor:
+    """keys (..., 2) -> (..., n_rx, n_tx, isi) CDL-B TDL taps (the
+    reference's channel): `draw_tdl_taps` with profile "b"."""
+    return draw_tdl_taps(keys, n_rx, n_tx, isi_duration, sample_rate_hz,
+                         delay_spread_ns, profile="b")
+
+
 def apply_fir_channel(taps: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y[..., r, n] = sum_t sum_k taps[..., r, t, k] * x[..., t, n-k].
 

@@ -1,5 +1,6 @@
-"""Monte-Carlo SNR points and curves on one GPU (port of the single-device
-part of esn_ofdm_mimo_tpu/parallel/montecarlo.py).
+"""Monte-Carlo SNR points and curves (port of
+esn_ofdm_mimo_tpu/parallel/montecarlo.py), on one GPU or over the ranks of
+a `torch.distributed` layout (parallel/mesh.py).
 
 Calibrated CDL (`cdl_snr_point`, the JAX `_cdl_snr_point` as driven by
 `make_fused_cdl_snr_step`):
@@ -23,12 +24,25 @@ counters summed per SNR, the same key stream (the one the JAX fused NBF grid
 folds on the device), the same top-up, checkpoints and progress, and
 `assemble_curve` into a `CurveResult`.
 
-The JAX `lax.scan` over rounds becomes a Python loop; the shard_map over a
-device mesh, the fused whole-grid dispatch and multi-GPU have no
-counterpart (one GPU, eager). Counters are summed in int64 on the host, so
-the JAX package's int32 guards go away; the cap on round-stacked decode
-LLRs stays. `_call_with_retry` re-runs a call on a runtime failure: calls
-are pure functions of their keys, so a retry is exact.
+The JAX `lax.scan` over rounds becomes a Python loop and the fused
+whole-grid dispatch has no counterpart (eager). Counters are summed in
+int64 on the host, so the JAX package's int32 guards go away; the cap on
+round-stacked decode LLRs stays. `_call_with_retry` re-runs a call on a
+runtime failure: calls are pure functions of their keys, so a retry is
+exact.
+
+Over ranks (`mesh`, the JAX shard_map over the "trials" axis): the SNR
+points and curves take the same global keys on every rank; of each round
+of G global blocks, rank r runs the contiguous share [r G/W, (r+1) G/W),
+W ranks. Counters are summed over the ranks (int64; the float capacity
+sum in float64, exact for its float32 terms), and the CDL calibration
+pairs are gathered in global block order before the calibrator fit, so
+every rank fits the same calibrators and takes the same top-up branch.
+Rank 0 alone writes checkpoints. Under EsnConfig(rng_mode="block") the
+counters equal one process's bit for bit whatever the layout; under
+"batch" each rank's share has its own shared reservoir, as each device's
+has in the JAX package. Calls over ranks are not retried: a rank that ran
+a round again would leave the others' collectives unmatched.
 """
 from __future__ import annotations
 
@@ -46,6 +60,7 @@ from ..pipelines.cdl import (CDL_DETECTORS, CdlCounts, cdl_decode_counters,
 from ..utils import rng
 from ..utils.device import resolve_device
 from ..utils.metrics import PhaseClock, check_finite
+from .mesh import TrialsMesh, all_gather_cat, all_sum
 
 
 class CdlSnrPoint(NamedTuple):
@@ -56,8 +71,66 @@ class CdlSnrPoint(NamedTuple):
     calib: dict                # detector -> (a (m,), b (m,)) calibrators
 
 
+def _distributed(mesh: TrialsMesh | None) -> bool:
+    return mesh is not None and mesh.group is not None
+
+
+def _share(keys: torch.Tensor, mesh: TrialsMesh | None) -> torch.Tensor:
+    """This rank's contiguous share of every round of keys (R, G, 2)."""
+    if not _distributed(mesh):
+        return keys
+    if not mesh.member:
+        raise ValueError("this process is not a rank of the layout")
+    G = keys.shape[1]
+    if G % mesh.size:
+        raise ValueError(f"a round of {G} blocks does not split over "
+                         f"{mesh.size} ranks")
+    g = G // mesh.size
+    return keys[:, mesh.rank * g:(mesh.rank + 1) * g]
+
+
+def _sum_over_ranks(counts, mesh: TrialsMesh | None):
+    """Counters (a NamedTuple of ints, floats, int arrays and dicts of
+    ints; None fields stay None) summed over the layout's ranks: the
+    integers in int64, the floats in float64."""
+    if not _distributed(mesh):
+        return counts
+    ints, floats = [], []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, float):
+            floats.append(x)
+        elif isinstance(x, np.ndarray):
+            ints.extend(int(v) for v in x.reshape(-1))
+        elif x is not None:
+            ints.append(int(x))
+
+    for field in counts:
+        walk(field)
+    si = iter(all_sum(mesh, torch.tensor(ints, dtype=torch.int64)).tolist())
+    sf = iter(all_sum(mesh, torch.tensor(floats, dtype=torch.float64))
+              .tolist() if floats else [])
+
+    def rebuild(x):
+        if isinstance(x, dict):
+            got = {k: rebuild(x[k]) for k in sorted(x)}
+            return {k: got[k] for k in x}
+        if isinstance(x, float):
+            return next(sf)
+        if isinstance(x, np.ndarray):
+            return np.asarray([next(si) for _ in range(x.size)],
+                              dtype=np.int64).reshape(x.shape)
+        return None if x is None else next(si)
+
+    return type(counts)(*(rebuild(f) for f in counts))
+
+
 def cdl_snr_point(cfg: SimConfig, ebno_db: float, cal_keys, dec_keys,
-                  device=None, timings: dict | None = None) -> CdlSnrPoint:
+                  device=None, timings: dict | None = None,
+                  mesh: TrialsMesh | None = None) -> CdlSnrPoint:
     """Calibration rounds, calibrator fit and decode rounds at one Eb/N0.
 
     cal_keys (Rc, G, 2) and dec_keys (Rd, G, 2): per-block uint32 key data
@@ -65,10 +138,13 @@ def cdl_snr_point(cfg: SimConfig, ebno_db: float, cal_keys, dec_keys,
     package's `jax.random.key_data` layout, so the same keys give the same
     per-block draws. `device` defaults to "cuda" and raises without CUDA
     unless "cpu" is asked for. `timings`, when given, receives the wall ms
-    of each phase (cal, fit, detect, decode)."""
+    of each phase (cal, fit, detect, decode). With a `mesh` every rank
+    passes the same global keys and runs its share of each round; the
+    calibration pairs are gathered in global block order and the counters
+    summed, so every rank returns the same point."""
     dev = resolve_device(device)
-    cal_keys = rng.as_keys(cal_keys, dev)
-    dec_keys = rng.as_keys(dec_keys, dev)
+    cal_keys = _share(rng.as_keys(cal_keys, dev), mesh)
+    dec_keys = _share(rng.as_keys(dec_keys, dev), mesh)
     m = cfg.ofdm.bits_per_symbol
     clock = PhaseClock(dev, timings)
 
@@ -84,13 +160,21 @@ def cdl_snr_point(cfg: SimConfig, ebno_db: float, cal_keys, dec_keys,
     clock.mark("cal")
     check_finite("the calibration LLRs", *(x for v in llrs.values()
                                            for x in v))
-    calib = fit_calibrators(cfg, {d: torch.cat(v) for d, v in llrs.items()},
-                            torch.cat(bits))
+
+    def pairs(rounds):
+        """(rounds, n, m) of each rank -> every round's global blocks in
+        order, rounds one after another: (rounds * n * ranks, m)."""
+        return all_gather_cat(mesh, torch.stack(rounds), 1).reshape(-1, m) \
+            if _distributed(mesh) else torch.cat(rounds)
+
+    calib = fit_calibrators(cfg, {d: pairs(v) for d, v in llrs.items()},
+                            pairs(bits))
     clock.mark("fit")
 
-    counts = _cdl_decode_rounds(cfg, ebno_db, dec_keys, calib, clock)
-    return CdlSnrPoint(cal_bit_errors=_ints(cal_errs),
-                       cal_total_bits=cal_bits, counts=counts, calib=calib)
+    counts = _cdl_decode_rounds(cfg, ebno_db, dec_keys, calib, clock, mesh)
+    cal = _sum_over_ranks(CdlSnrPoint(_ints(cal_errs), cal_bits, None, None),
+                          mesh)
+    return cal._replace(counts=counts, calib=calib)
 
 
 def _ints(dct: dict) -> dict:
@@ -98,9 +182,11 @@ def _ints(dct: dict) -> dict:
 
 
 def _cdl_decode_rounds(cfg: SimConfig, ebno_db: float, dec_keys, calib: dict,
-                       clock: PhaseClock) -> CdlCounts:
+                       clock: PhaseClock, mesh: TrialsMesh | None = None
+                       ) -> CdlCounts:
     """Detection per round of dec_keys (Rd, G, 2), one BP decode of the
-    round-stacked LLRs; CdlCounts of Python ints."""
+    round-stacked LLRs; CdlCounts of Python ints, summed over the ranks of
+    `mesh` (dec_keys are this rank's share)."""
     dec_errs = {d: 0 for d in CDL_DETECTORS}
     dec_bits, Lcs, us = 0, {d: [] for d in CDL_DETECTORS}, []
     for keys in dec_keys:
@@ -116,24 +202,28 @@ def _cdl_decode_rounds(cfg: SimConfig, ebno_db: float, dec_keys, calib: dict,
     check_finite("the calibrated decode LLRs", *Lcs.values())
     dec = cdl_decode_counters(cfg, Lcs, u)
     clock.mark("decode")
-    return CdlCounts(
+    return _sum_over_ranks(CdlCounts(
         bit_errors=_ints(dec_errs), total_bits=dec_bits,
         info_errors=_ints(dec["info_errors"]), total_info_bits=u.numel(),
         frame_errors=_ints(dec["frame_errors"]),
         ldpc_iter_sum=_ints(dec["iter_sum"]),
-        ldpc_unconverged=_ints(dec["unconv"]), ldpc_codewords=u.shape[0])
+        ldpc_unconverged=_ints(dec["unconv"]), ldpc_codewords=u.shape[0]),
+        mesh)
 
 
 def cdl_decode_rounds(cfg: SimConfig, ebno_db: float, dec_keys, calib: dict,
-                      device=None, timings: dict | None = None) -> CdlCounts:
+                      device=None, timings: dict | None = None,
+                      mesh: TrialsMesh | None = None) -> CdlCounts:
     """Decode rounds alone, with calibrators already fitted (the JAX
     dec_step): what the curve's extra and top-up rounds run. dec_keys
-    (Rd, G, 2); calib detector -> (a, b), tensors or array-likes."""
+    (Rd, G, 2), global with a `mesh`; calib detector -> (a, b), tensors or
+    array-likes."""
     dev = resolve_device(device)
     calib = {d: tuple(torch.as_tensor(x, dtype=torch.float32, device=dev)
                       for x in ab) for d, ab in calib.items()}
-    return _cdl_decode_rounds(cfg, ebno_db, rng.as_keys(dec_keys, dev), calib,
-                              PhaseClock(dev, timings))
+    return _cdl_decode_rounds(cfg, ebno_db,
+                              _share(rng.as_keys(dec_keys, dev), mesh), calib,
+                              PhaseClock(dev, timings), mesh)
 
 
 def _add_counts(a, b):
@@ -152,7 +242,8 @@ def _host(x):
 
 
 def nbf_snr_point(cfg: SimConfig, ebno_db: float, keys, device=None,
-                  timings: dict | None = None) -> NbfCounts:
+                  timings: dict | None = None,
+                  mesh: TrialsMesh | None = None) -> NbfCounts:
     """Rounds of run_nbf_blocks at one Eb/N0, counters summed over rounds.
 
     keys (R, G, 2): per-block uint32 key data (numpy or tensors), as
@@ -160,15 +251,17 @@ def nbf_snr_point(cfg: SimConfig, ebno_db: float, keys, device=None,
     without CUDA unless "cpu" is asked for. `timings`, when given, receives
     the wall ms of each phase summed over rounds (synth_fit, detect,
     decode, analytics). Returns NbfCounts of Python ints and floats, the
-    histogram as an int64 numpy array."""
+    histogram as an int64 numpy array. With a `mesh` every rank passes the
+    same global keys, runs its share of each round, and returns the
+    counters summed over the ranks."""
     dev = resolve_device(device)
-    keys = rng.as_keys(keys, dev)
+    keys = _share(rng.as_keys(keys, dev), mesh)
     clock = PhaseClock(dev, timings)
     acc = None
     for bkeys in keys:
         c = run_nbf_blocks(cfg, ebno_db, bkeys, mark=clock.mark)
         acc = c if acc is None else _add_counts(acc, c)
-    return NbfCounts(*(_host(x) for x in acc))
+    return _sum_over_ranks(NbfCounts(*(_host(x) for x in acc)), mesh)
 
 
 @dataclasses.dataclass
@@ -210,6 +303,11 @@ def _call_with_retry(step, args, retries: int = 2,
             if progress is not None:
                 progress(f"[mc] round failed (attempt {attempt + 1}): {e}")
     raise last
+
+
+def _writes(mesh: TrialsMesh | None) -> bool:
+    """Whether this process writes checkpoints: rank 0 of a layout."""
+    return mesh is None or mesh.rank == 0
 
 
 def _round_keys(root: torch.Tensor, snr_idx: int, first_id: int,
@@ -256,11 +354,13 @@ def run_nbf_curve(cfg: SimConfig, blocks_per_snr: int,
                   checkpoint=None, rounds_per_call: int = 4,
                   adaptive_min_errors: Optional[int] = None,
                   adaptive_max_blocks: Optional[int] = None,
-                  adaptive_on_uncoded: bool = False) -> CurveResult:
+                  adaptive_on_uncoded: bool = False,
+                  mesh: TrialsMesh | None = None) -> CurveResult:
     """The SNR sweep of a block-fading experiment (JAX run_nbf_curve).
 
     blocks_per_snr is rounded up to whole calls of `rounds_per_call` rounds
-    of `blocks_per_round` blocks, as the JAX package rounds it to whole
+    of `blocks_per_round` blocks a rank (the JAX blocks_per_device; one
+    rank without a `mesh`), as the JAX package rounds it to whole
     dispatches. Block keys are block_keys(PRNGKey(seed), snr index, 0 ..
     n - 1), the JAX package's stream, so the classical detectors draw the
     same blocks.
@@ -271,9 +371,10 @@ def run_nbf_curve(cfg: SimConfig, blocks_per_snr: int,
     counts set the effective sample size), or, with adaptive_on_uncoded,
     uncoded bit errors; or until adaptive_max_blocks (default 4 x
     blocks_per_snr) is reached. `checkpoint` (utils.checkpoint.SnrCheckpoint)
-    saves each finished SNR point and skips the ones it holds."""
+    saves each finished SNR point (rank 0 of a `mesh` alone) and skips the
+    ones it holds."""
     dev = resolve_device(device)
-    G = blocks_per_round
+    G = blocks_per_round * (1 if mesh is None else mesh.size)
     rounds = max(1, -(-blocks_per_snr // G))
     R = max(1, min(rounds_per_call, rounds))
     calls = -(-rounds // R)
@@ -294,8 +395,9 @@ def run_nbf_curve(cfg: SimConfig, blocks_per_snr: int,
         def run_rounds(first_id, n_rounds):
             keys = _round_keys(root, jj, first_id, n_rounds, G)
             return _call_with_retry(nbf_snr_point,
-                                    (cfg, float(ebno), keys, dev),
-                                    progress=progress)
+                                    (cfg, float(ebno), keys, dev, None, mesh),
+                                    progress=progress,
+                                    retries=0 if _distributed(mesh) else 2)
 
         acc = run_rounds(0, R)
         for c in range(1, calls):
@@ -307,7 +409,7 @@ def run_nbf_curve(cfg: SimConfig, blocks_per_snr: int,
             G, calls * R * G, calls * R * G, adaptive_min_errors, max_blocks,
             rounds_per_call, progress)
         acc_per_snr.append(acc)
-        if checkpoint is not None:
+        if checkpoint is not None and _writes(mesh):
             checkpoint.save(jj, acc)
         if progress is not None:
             ber = {k: v / max(acc.total_bits, 1)
@@ -325,11 +427,13 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
                   adaptive_min_errors: Optional[int] = None,
                   adaptive_max_blocks: Optional[int] = None,
                   adaptive_on_uncoded: bool = False,
-                  timings: dict | None = None) -> list:
+                  timings: dict | None = None,
+                  mesh: TrialsMesh | None = None) -> list:
     """SNR sweep of the calibrated CDL pipeline (JAX run_cdl_curve).
 
     blocks_per_snr is rounded up to whole rounds of `blocks_per_round`
-    blocks and split into calibration rounds (calib.cal_fraction of them)
+    blocks a rank (one rank without a `mesh`; the JAX blocks_per_device)
+    and split into calibration rounds (calib.cal_fraction of them)
     and decode rounds; a one-round budget cannot host both phases and is
     bumped to 1 + 1, loudly. Per SNR index jj the keys are block_keys(root,
     jj, ids) with the calibration ids first and the decode ids after.
@@ -345,9 +449,10 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
     `timings`, when given, receives the wall ms of each phase summed over
     the sweep (cal, fit, detect, decode). Returns one dict per SNR point:
     ebno_db, ber_uncoded, ber_coded, calib, ldpc_avg_iters,
-    ldpc_unconverged_frac."""
+    ldpc_unconverged_frac; rank 0 of a `mesh` alone saves checkpoints."""
     dev = resolve_device(device)
-    G = blocks_per_round
+    G = blocks_per_round * (1 if mesh is None else mesh.size)
+    retries = 0 if _distributed(mesh) else 2
     rounds = max(1, -(-blocks_per_snr // G))
     cal_rounds = min(max(1, round(rounds * cfg.calib.cal_fraction)),
                      max(rounds - 1, 1))
@@ -381,16 +486,16 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
         pt = _call_with_retry(
             cdl_snr_point,
             (cfg, float(ebno), _round_keys(root, jj, 0, cal_rounds, G),
-             _round_keys(root, jj, first_dec, rd_first, G), dev, timings),
-            progress=progress)
+             _round_keys(root, jj, first_dec, rd_first, G), dev, timings,
+             mesh), progress=progress, retries=retries)
         calib = pt.calib
 
         def run_rounds(first_id, n_rounds):
             keys = _round_keys(root, jj, first_id, n_rounds, G)
             return _call_with_retry(
                 cdl_decode_rounds,
-                (cfg, float(ebno), keys, calib, dev, timings),
-                progress=progress)
+                (cfg, float(ebno), keys, calib, dev, timings, mesh),
+                progress=progress, retries=retries)
 
         coded = pt.counts
         bid = first_dec + rd_first * G
@@ -423,7 +528,7 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
                 d: v / ncw for d, v in coded.ldpc_unconverged.items()},
         }
         results.append(snr_res)
-        if checkpoint is not None:
+        if checkpoint is not None and _writes(mesh):
             checkpoint.save(jj, snr_res)
         if progress is not None:
             progress(f"[cdl] EbNo={ebno:g} dB: "

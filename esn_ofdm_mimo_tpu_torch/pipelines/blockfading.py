@@ -148,7 +148,10 @@ def run_nbf_blocks(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
     counts = NbfCounts(
         bit_errors=bit_errors, total_bits=i64(code_bits.numel()),
         info_errors=info_errors, total_info_bits=i64(total_info),
-        frame_errors=frame_errors, capacity_sum=met.capacity_per_sc.sum(),
+        frame_errors=frame_errors,
+        # in float64, exact for float32 terms: the sum does not depend on
+        # how the blocks are cut into rounds and ranks
+        capacity_sum=met.capacity_per_sc.to(torch.float64).sum(),
         rank_full_sum=(met.rank >= full).sum(),
         rank_count=i64(met.rank.numel()),
         cond_hist=cond_histogram(met.cond), n_blocks=i64(bkeys.shape[0]),

@@ -1,13 +1,17 @@
 """Shared coherence-block machinery (port of
-esn_ofdm_mimo_tpu/pipelines/common.py, rng_mode="batch").
+esn_ofdm_mimo_tpu/pipelines/common.py).
 
 One coherence block = channel draw + pilot symbol + ESN training + D data
 symbols (the reference's `kk % L == 1` schedule, OFDM_SISO_NBF_LDPC.py:270).
 B blocks run as one batch: keys (B, 2) give each block its own taps, bits
 and noise through the key-compatible RNG (utils/rng.py), so every per-block
-draw equals the JAX package's at the same keys. As there, the ESN reservoir
-and its state-noise streams are shared by the batch and tied to its first
-key.
+draw equals the JAX package's at the same keys. Under EsnConfig.rng_mode
+"batch" (the default), as there, the ESN reservoir and its state-noise
+streams are shared by the batch and tied to its first key. Under "block"
+each block draws its reservoir from fold_in(its key, _K_RESERVOIR) and
+seeds its fits and detections from its own folded keys, and runs its ESN
+alone (models/esn_mimo.py, the *_per_block functions): the counters then do
+not depend on how the blocks are cut into rounds or ranks.
 
 The link budget (var_x, Pi, sqrt(Pi), A_clip, No/Pi) is evaluated in
 float32, as the JAX package evaluates it with a traced float32 Eb/N0.
@@ -28,7 +32,9 @@ import torch
 from ..config import SimConfig
 from ..ldpc import ldpc_encode
 from ..models.esn import EsnReservoir, EsnScale, init_reservoir, key_seed
-from ..models.esn_mimo import train_mimo_esn, esn_detect_symbols
+from ..models.esn_mimo import (esn_detect_symbols,
+                               esn_detect_symbols_per_block, stack_reservoirs,
+                               train_mimo_esn, train_mimo_esn_per_block)
 from ..ops import (apply_fir_channel, awgn, bits_to_symbols,
                    draw_exp_pdp_taps, draw_flat_awgn_tap, draw_tdl_taps,
                    estimate_channel, ofdm_demodulate, ofdm_modulate,
@@ -88,16 +94,24 @@ class BlockState(NamedTuple):
     H_true: torch.Tensor      # (B, N, n_rx, n_tx)
     H_ls: torch.Tensor        # (B, N, n_rx, n_tx)
     H_mmse: torch.Tensor      # (B, N, n_rx, n_tx)
-    reservoir: EsnReservoir   # shared across the batch
+    reservoir: EsnReservoir   # shared across the batch; rng_mode "block":
+    #                           one a block (weights with a leading B axis)
     scale_m: EsnScale         # SNR-matched input scaling
     scale_f: EsnScale | None  # fixed-training-SNR scaling (None if off)
     Wt_out_m: torch.Tensor    # (B, F, 2*n_tx) matched readout
     Wt_out_f: torch.Tensor | None  # fixed-SNR readout
 
 
-def _check_supported(cfg: SimConfig):
-    if cfg.esn.rng_mode != "batch":
-        raise NotImplementedError("rng_mode='block' is not ported yet")
+def _per_block(cfg: SimConfig) -> bool:
+    """Whether the ESN runs one block at a time (rng_mode "block")."""
+    if cfg.esn.rng_mode not in ("batch", "block"):
+        raise ValueError(f"unknown esn rng_mode {cfg.esn.rng_mode!r}")
+    return cfg.esn.rng_mode == "block"
+
+
+def _seeds(keys: torch.Tensor) -> list:
+    """The noise seed of each key of a (B, 2) batch."""
+    return [key_seed(k) for k in keys.cpu()]
 
 
 def _draw_taps(cfg: SimConfig, keys: torch.Tensor) -> torch.Tensor:
@@ -154,14 +168,19 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
     received pilot and the teacher the ESN trained on (the reference
     trains every zoo model on them, Demo_MIMO_2x2_all_DL_model_comparion.py
     :310), as (BlockState, (y_cp, x_tgt))."""
-    _check_supported(cfg)
+    per_block = _per_block(cfg)
     ofdm, esn_cfg, ch = cfg.ofdm, cfg.esn, cfg.channel
     N, cp, isi = ofdm.n_subcarriers, ofdm.cp_len, ofdm.isi_duration
     n_tx, n_rx, mp = ch.n_tx, ch.n_rx, ofdm.bits_per_pilot_symbol
     T = N + cp
     lb = link_budget(cfg, ebno_db)
 
-    taps = _draw_taps(cfg, rng.fold_in(bkeys, _K_CHAN))
+    chan_keys = rng.fold_in(bkeys, _K_CHAN)
+    # block mode draws each block's taps alone: the TDL draw's matmul folds
+    # the blocks into its rows, and on the card the kernel it runs, and so
+    # its summation order, depends on their number
+    taps = (torch.cat([_draw_taps(cfg, k[None]) for k in chan_keys])
+            if per_block else _draw_taps(cfg, chan_keys))
     H_true = taps_to_freq_response(taps, N)
 
     pbits = _vbits(rng.fold_in(bkeys, _K_PBITS), (n_tx, N * mp))
@@ -197,10 +216,14 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
     if unknown:
         raise ValueError(f"unknown ESN overrides {sorted(unknown)}")
     hyper = {k: float(ov.get(k, getattr(esn_cfg, k))) for k in ESN_OVERRIDES}
-    res = init_reservoir(rng.fold_in(bkeys[0], _K_RESERVOIR), 2 * n_rx,
-                         2 * n_tx, esn_cfg.n_reservoir,
-                         hyper["spectral_radius"], hyper["sparsity"],
-                         hyper["noise"])
+    def draw(key):
+        return init_reservoir(key, 2 * n_rx, 2 * n_tx, esn_cfg.n_reservoir,
+                              hyper["spectral_radius"], hyper["sparsity"],
+                              hyper["noise"])
+
+    res_keys = rng.fold_in(bkeys, _K_RESERVOIR)
+    res = (stack_reservoirs([draw(k) for k in res_keys]) if per_block
+           else draw(res_keys[0]))
     delay = esn_cfg.shared_delay(isi)
 
     def fit(budget, y, x, tag, teacher_scaling):
@@ -209,6 +232,9 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
                                / np.sqrt(np.float32(budget.var_x))),
             input_shift=_f32(esn_cfg.input_offset / esn_cfg.input_scaler),
             teacher_scaling=_f32(teacher_scaling))
+        if per_block:
+            return scale, train_mimo_esn_per_block(
+                res, scale, y, x, delay, cp, _seeds(rng.fold_in(bkeys, tag)))
         seed = key_seed(rng.fold_in(bkeys[0], tag))
         return scale, train_mimo_esn(res, scale, y, x, delay, cp, seed)
 
@@ -269,13 +295,20 @@ def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
     y_cp = apply_fir_channel(state.taps[:, None], x_cp) + noise
     Y = ofdm_demodulate(y_cp, cp)                           # (B, D, n_rx, N)
 
+    delay = cfg.esn.shared_delay(ofdm.isi_duration)
+
     def esn(scale, Wt_out, tag):
+        if _per_block(cfg):
+            # block b's symbols on its own reservoir, seeded from its key
+            return esn_detect_symbols_per_block(
+                state.reservoir, scale, Wt_out, y_cp, delay, cp, N,
+                lb.sqrt_pi, _seeds(rng.fold_key(bkeys, _K_DETECT, tag)))
         # rows are block-major (D symbols per block), so the (B, F, n_out)
         # readout passes grouped: row r uses readout r // D
         seed = key_seed(rng.fold_key(bkeys[0], _K_DETECT, tag))
         Xh = esn_detect_symbols(
             state.reservoir, scale, Wt_out, y_cp.reshape(B * D, n_rx, T),
-            cfg.esn.shared_delay(ofdm.isi_duration), cp, N, lb.sqrt_pi, seed)
+            delay, cp, N, lb.sqrt_pi, seed)
         return Xh.reshape(B, D, N, n_tx)
 
     # the channel is block-constant: each equaliser is solved once per

@@ -76,7 +76,12 @@ def run_zoo_blocks(cfg: SimConfig, ebno_db: float, bkeys, epochs: int = 50,
     defaults to "cuda" and raises without CUDA unless "cpu" is asked for.
     `timings`, when given, receives each phase's wall ms: synth (channel,
     pilot, the ESN fits), detect, cnn, rnn, fnn, elm (training), preds
-    (the zoo's predictions), nmse (the ESN's two) and bits."""
+    (the zoo's predictions), nmse (the ESN's two) and bits. The ESN's
+    NMSEs take one batch-shared reservoir: EsnConfig.rng_mode "block" is
+    refused, as the JAX package's run_zoo_blocks cannot take it either."""
+    if cfg.esn.rng_mode != "batch":
+        raise ValueError("run_zoo_blocks takes EsnConfig.rng_mode 'batch' "
+                         f"only, not {cfg.esn.rng_mode!r}")
     dev = resolve_device(device)
     bkeys = rng.as_keys(bkeys, dev)
     clock = PhaseClock(dev, timings)

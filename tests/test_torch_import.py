@@ -39,7 +39,11 @@ def test_port_imports_with_jax_blocked():
             "esn_ofdm_mimo_tpu_torch.pipelines.classification, "
             "esn_ofdm_mimo_tpu_torch.experiments.classify, "
             "esn_ofdm_mimo_tpu_torch.pipelines.zoo2x2, "
-            "esn_ofdm_mimo_tpu_torch.experiments.compare2x2\n"
+            "esn_ofdm_mimo_tpu_torch.experiments.compare2x2, "
+            "esn_ofdm_mimo_tpu_torch.parallel.mesh, "
+            "esn_ofdm_mimo_tpu_torch.parallel.seqshard, "
+            "esn_ofdm_mimo_tpu_torch.utils.model_io, "
+            "esn_ofdm_mimo_tpu_torch.experiments.scaling\n"
             "import runpy\n"
             "runpy.run_path('tools/bench_micro_torch.py', run_name='tool')\n"
             "import torch\n"

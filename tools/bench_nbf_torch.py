@@ -9,7 +9,8 @@ It drives `parallel/montecarlo.py:nbf_snr_point` on `mimo_4x8_nbf` with
 chip_smoke.py's `[nbf main]` keys and order: a warm-up on 8 blocks at 12 dB,
 then 3 dB and 12 dB on G blocks (default 128, one round), N times. For each
 point it prints the phase walls (`timings`) and, summed over the point's two
-ESN fits (`models/esn_mimo.py:train_mimo_esn`, matched and 12 dB fixed):
+ESN fits (`models/esn_mimo.py:train_mimo_esn`, matched and 12 dB fixed,
+through `models/esn.py:esn_fit`):
 
   * fit: the whole of each fit call;
   * states: the state harvest (`esn_states_cuda`: K3 on the card), from a
@@ -46,7 +47,8 @@ import torch  # noqa: E402
 
 from esn_ofdm_mimo_tpu_torch.experiments.presets import (  # noqa: E402
     mimo_4x8_cdl, mimo_4x8_nbf)
-from esn_ofdm_mimo_tpu_torch.models import esn_mimo  # noqa: E402
+from esn_ofdm_mimo_tpu_torch.models import esn  # noqa: E402
+from esn_ofdm_mimo_tpu_torch.models import esn_states_cuda  # noqa: E402
 from esn_ofdm_mimo_tpu_torch.parallel import (  # noqa: E402
     cdl_snr_point, nbf_snr_point)
 from esn_ofdm_mimo_tpu_torch.pipelines import common  # noqa: E402
@@ -98,9 +100,11 @@ def main(argv=None) -> int:
     keys = {e: rng.block_keys(root, nbf.ebno_db.index(e), torch.arange(G))
             .reshape(1, G, 2).numpy() for e in (3.0, 12.0)}
     split: dict = {}
-    common.train_mimo_esn, esn_mimo.esn_states_cuda, esn_mimo._readout_lstsq \
-        = _timed(split, dev, common.train_mimo_esn, esn_mimo.esn_states_cuda,
-                 esn_mimo._readout_lstsq)
+    # esn_fit (which train_mimo_esn calls) looks both up at each call
+    common.train_mimo_esn, esn_states_cuda.esn_states_cuda, \
+        esn._readout_lstsq = _timed(
+            split, dev, common.train_mimo_esn, esn_states_cuda.esn_states_cuda,
+            esn._readout_lstsq)
     cdl = mimo_4x8_cdl()
     ck = rng.block_keys(root, 0, torch.arange(2 * G)).reshape(2, 1, G, 2)
     nbf_snr_point(nbf, 12.0, keys[12.0][:, :min(8, G)], device=dev)
