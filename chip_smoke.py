@@ -113,6 +113,22 @@ nvcc per source, all started together; sm_90a), then:
        rows); [block nbf] the same on mimo_4x8_nbf at full width, 8 blocks,
        one round at 12 dB (K3 and K2 twice a block: matched and 12 dB
        fixed);
+       [cal chunks] the detection-throughput path,
+       pipelines/cdl.py:run_cdl_cal_counters_chunks, on the flagship at 12
+       dB, 16 chunks of 128 blocks (keys from block ids in order, as
+       bench.py builds them; depth cut from its 64 chunks): one chunk
+       captured as a CUDA graph and replayed 16 times, after a warm-up
+       call; counters identical to 16 eager run_cdl_cal_blocks calls; the
+       replays launch nothing from Python (every wrapper's count stays 0)
+       and a torch.profiler trace of them counts K2 and K3 16 times each
+       by kernel name; one eager chunk under
+       torch.cuda.set_sync_debug_mode("error") (no host sync), the wall of
+       the replays, of the eager
+       loop and of the eager counters-only loop, detected symbols/s and
+       TFLOP/s (utils/flops.py:cdl_flops) with their share of the fp32
+       peak, the capture's ms and the graph pool's MiB; [cal chunks block]
+       the same in rng_mode="block", 2 chunks of 4 blocks (K2 and K3 once
+       a block);
        [curve] the CLI, esn_ofdm_mimo_tpu_torch.experiments.run.main, on
        mimo_4x8_cdl at 9, 12 and 15 dB, 256 blocks per SNR in rounds of 128
        with the adaptive top-up and checkpoints: K1, K2, K3 launched, the
@@ -185,7 +201,9 @@ nvcc per source, all started together; sm_90a), then:
        (experiments/scaling.py --fast) at one NCCL rank, its --out read
        (one card: no scaling efficiency).
      No QC path may reach the graph decoder (its count stays 0);
-  8. one JSON line listing the kernels (launches on the main paths, error
+  8. one JSON line listing the kernels (launches on the main paths: the
+     wrappers' counts, and for the graph replays the kernels of their
+     trace; error
      against the plain version, times, bound: the largest of bytes over the
      memory rate, fp32 operations over the fp32 peak and transcendentals
      over the special-function unit's rate; library_ms the cuDNN RNN's for
@@ -196,8 +214,8 @@ Every phase ends in torch.cuda.synchronize(); any failure exits non-zero
 before the final line. Without CUDA it exits 1 and prints no result.
 
 --profile adds one more run of the flagship and the 12 dB NBF main paths
-under torch.profiler and prints the device time by kernel and the device's
-busy share of each run's wall time.
+and of [cal chunks]'s 16 replays under torch.profiler and prints the device
+time by kernel and the device's busy share of each run's wall time.
 """
 from __future__ import annotations
 
@@ -1528,6 +1546,103 @@ def main() -> None:
                1 + (nbf.esn.train_ebno_fixed_db is not None),
                (rng.block_keys(root, 1, torch.arange(8)).numpy(),))
 
+    # ---- the detection-throughput path: one captured chunk, R replays -----
+    # [cal chunks]: run_cdl_cal_counters_chunks on the flagship at bench.py's
+    # widths (128 blocks a chunk, keys from block ids in order), 16 chunks
+    # (bench.py: 64); [cal chunks block] the same in rng_mode="block", 2
+    # chunks of 4 blocks. Each runs once to warm up (an eager chunk, the
+    # capture, the replays), then counted on the next keys, against R eager
+    # run_cdl_cal_blocks calls on those keys (identical counters) and the
+    # eager loop of the counters-only body (the same work as a replay)
+    from esn_ofdm_mimo_tpu_torch.pipelines import cdl as cdl_pipe
+    from esn_ofdm_mimo_tpu_torch.utils.flops import cdl_flops
+
+    def cal_chunks(c, what: str, R_c: int, B_c: int, per_chunk: int):
+        def keys_for(i):
+            ids = torch.arange(i * R_c * B_c, (i + 1) * R_c * B_c)
+            return rng.block_keys(root, 0, ids).reshape(R_c, B_c, 2).to(dev)
+
+        wall_1 = wall_s(lambda: cdl_pipe.run_cdl_cal_counters_chunks(
+            c, 12.0, keys_for(0)))
+        keys_c = keys_for(1)
+        # what a capture needs: an eager chunk that syncs the host nowhere
+        # (torch raises on each synchronizing call it detects)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cdl_pipe._cal_counters(c, 12.0, keys_c[0])
+        except RuntimeError as e:
+            _fail(f"{what}: an eager chunk synchronizes the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        def chunks():
+            return cdl_pipe.run_cdl_cal_counters_chunks(c, 12.0, keys_c)
+
+        got = []
+        wall_g = wall_s(lambda: got.append(chunks()))
+        # the counted run: the graph is cached, so the wrappers launch
+        # nothing from Python (their counts stay 0) and the replays'
+        # kernels are counted in the card's trace (CUPTI, through
+        # torch.profiler), by kernel name
+        (got_t, per), _, _, la_py = count_run(
+            lambda ph: _trace_kernels(chunks), (), what)
+        la = {k: 0 for k in la_py}
+        for name, (_, n) in per.items():
+            if _counter_of(name):
+                la[_counter_of(name)] += n
+        for k, v in la.items():
+            launches_total[k] += v
+        _check(not any(la_py.values()),
+               f"{what}: the replays launched kernels from Python: {la_py}")
+        g = cdl_pipe.cal_graph(c, 12.0, keys_c[0])
+        errs, tot = got[0]
+        errs = {d: int(v) for d, v in errs.items()}
+        _check({d: int(v) for d, v in got_t[0].items()} == errs
+               and got_t[1] == tot,
+               f"{what}: the traced replays' counters {got_t} differ from "
+               f"the timed replays' {errs} / {tot}")
+        outs = []
+        wall_e = wall_s(lambda: outs.extend(
+            cdl_pipe.run_cdl_cal_blocks(c, 12.0, keys_c[r])
+            for r in range(R_c)))
+        want = {d: sum(int(o.bit_errors[d]) for o in outs) for d in errs}
+        wall_c = wall_s(lambda: [cdl_pipe._cal_counters(c, 12.0, keys_c[r])
+                                 for r in range(R_c)])
+        _check(errs == want and tot == sum(o.total_bits for o in outs),
+               f"{what}: the graph's counters {errs} / {tot} differ from the "
+               f"eager loop's {want}")
+        _check(la["esn_predict"] == R_c * per_chunk
+               and la["esn_states"] == R_c * per_chunk
+               and not any(la[k] for k in la
+                           if k not in ("esn_predict", "esn_states")),
+               f"{what}: traced launches {la}, expected K2 and K3 "
+               f"{per_chunk} a chunk")
+        syms = R_c * B_c * (c.data_symbols_per_block + 1)
+        flop = cdl_flops(c, B_c).cal_counters * R_c
+        rate = {k: (syms / w, flop / w / 1e12)
+                for k, w in (("graph", wall_g), ("eager", wall_e),
+                             ("eager counters", wall_c))}
+        _log(f"[{what}] {c.name} rng_mode {c.esn.rng_mode}, 12 dB, {R_c} "
+             f"chunks x {B_c} blocks: graph counters {errs} / {tot} "
+             f"identical to {R_c} eager run_cdl_cal_blocks calls; an eager "
+             f"chunk syncs nowhere (sync debug mode) | launches in the "
+             f"trace of the replays {la} | capture {g.capture_ms:.1f} ms, graph pool "
+             f"{g.pool_bytes / 2**20:.1f} MiB, first call (warm-up chunk, "
+             f"capture, replays) {1e3 * wall_1:.1f} ms | {smi}")
+        _log(f"[{what}] wall ms: graph {1e3 * wall_g:.3f}, eager "
+             f"run_cdl_cal_blocks {1e3 * wall_e:.3f}, eager counters-only "
+             f"{1e3 * wall_c:.3f} | detected symbols/s, TFLOP/s "
+             f"(cdl_flops cal_counters {flop / 1e9:.2f} GFLOP; share of "
+             f"{_FP32_FLOP_PER_S / 1e12:.0f}): "
+             + ", ".join(f"{k} {v[0]:.1f}, {v[1]:.3f} "
+                         f"({100 * v[1] * 1e12 / _FP32_FLOP_PER_S:.2f}%)"
+                         for k, v in rate.items()) + f" | {smi}")
+        return wall_g, keys_c
+
+    wall_chunks, keys_chunks = cal_chunks(cfg, "cal chunks", 16, G_main, 1)
+    cfg_cb = dataclasses.replace(cfg, esn=dataclasses.replace(
+        cfg.esn, rng_mode="block"))
+    cal_chunks(cfg_cb, "cal chunks block", 2, 4, 4)
+
     # the micro-benchmark's predict group: the path that launches K5
     _, _, _, la_5 = count_run(
         lambda ph: micro.run_pred_variants(G_main, dev, rounds=4),
@@ -2250,6 +2365,14 @@ def main() -> None:
         _profile_main_path(
             "main", lambda: cdl_snr_point(cfg, ebno, keys[0], keys[1]),
             1e3 * wall)
+        # the 16 replays of one captured flagship chunk (captured again:
+        # the block-mode phase replaced the cached graph)
+        def chunks():
+            return cdl_pipe.run_cdl_cal_counters_chunks(cfg, ebno,
+                                                        keys_chunks)
+
+        chunks()
+        _profile_main_path("cal chunks", chunks, 1e3 * wall_chunks)
         _profile_main_path(
             "nbf main 12 dB",
             lambda: nbf_snr_point(nbf, 12.0, nbf_keys[12.0]),
@@ -2272,10 +2395,10 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def _profile_main_path(what: str, run, wall_ms: float) -> None:
-    """Device time by kernel over one main-path run under torch.profiler,
-    and the share of the unprofiled run's wall time `wall_ms` the device
-    was busy (kernels run on one stream, so their times add)."""
+def _trace_kernels(run):
+    """`run()` under torch.profiler: (its result, kernel name -> [device
+    ms, launches]). The card's trace (CUPTI) holds every kernel that ran,
+    those that a CUDA graph replay launched too."""
     import collections
 
     import torch
@@ -2285,13 +2408,37 @@ def _profile_main_path(what: str, run, wall_ms: float) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run()
+        out = run()
         torch.cuda.synchronize()
     per = collections.defaultdict(lambda: [0.0, 0])
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             per[e.name][0] += e.time_range.elapsed_us() / 1e3
             per[e.name][1] += 1
+    return out, dict(per)
+
+
+def _counter_of(kernel: str):
+    """The launch counter of the port's kernel that a traced kernel name
+    belongs to, or None. K5's builds share K2's name (the same template of
+    esn_predict_core.cuh): a trace counts them as K2's."""
+    if "esn_states_cluster_kernel" in kernel:
+        return "esn_states"
+    if "predict_kernel<" in kernel:
+        grouped = kernel.split("predict_kernel<")[1].split(",")[2].strip()
+        return "esn_predict_grouped" if grouped == "true" else "esn_predict"
+    if "bp_layered_kernel" in kernel:
+        return "bp_decode_layered"
+    if "bp_flooding_kernel" in kernel:
+        return "bp_decode"
+    return None
+
+
+def _profile_main_path(what: str, run, wall_ms: float) -> None:
+    """Device time by kernel over one main-path run under torch.profiler,
+    and the share of the unprofiled run's wall time `wall_ms` the device
+    was busy (kernels run on one stream, so their times add)."""
+    _, per = _trace_kernels(run)
     busy = sum(v[0] for v in per.values())
     _log(f"[profile {what}] device kernels {busy:.3f} ms in "
          f"{sum(v[1] for v in per.values())} launches = "

@@ -52,7 +52,10 @@
 //     weights Wout[row / Dg] through L1 from L2 at every step; the launcher
 //     leaves L1 whatever shared memory the resident blocks do not need;
 //   * state noise is Philox-4x32-10 (curand_kernel.h), one subsequence per
-//     thread, seeded by the wrapper; it is added only to real neurons;
+//     thread, added only to real neurons; the launch takes its 64-bit seed
+//     in device memory and copies it to the library's constant slot
+//     (esn_predict_core.cuh:c_seed) on its stream, so a captured CUDA
+//     graph draws the stream of whatever seed the buffer holds at replay;
 //   * everything is fp32 with fused multiply-adds, so sums differ from the
 //     plain version's matmuls by rounding only (compared at atol 1e-4,
 //     rtol 1e-3).
@@ -78,7 +81,7 @@ extern "C" int esn_predict_launch(const float* u_fm, const float* wc,
                                   int T, int n_res, int n_in, int n_out,
                                   int Dg, int n_forget, int rows, int height,
                                   float noise, float teacher_scaling,
-                                  unsigned long long seed, void* stream) {
+                                  const unsigned long long* seed, void* stream) {
   return esn_predict::launch_any<false>(u_fm, wc, wout, out, s0, o0, B, T,
                                         n_res, n_in, n_out, Dg, n_forget,
                                         rows, height, 0, noise,

@@ -56,7 +56,7 @@ extern "C" int esn_predict_ablate_launch(
     const float* u_fm, const float* wc, const float* wout, float* out, int B,
     int T, int n_res, int n_in, int n_out, int Dg, int n_forget, int rows,
     int height, int off_mask, float noise, float teacher_scaling,
-    unsigned long long seed, void* stream) {
+    const unsigned long long* seed, void* stream) {
   if (B <= 0 || T <= n_forget) return 0;
   if ((n_res + 63) / 64 != kNj4 || height != kHeight || rows <= 0 ||
       rows > height || Dg <= 0)

@@ -55,6 +55,15 @@ enum Off {
   kNoRecDot = 16,
 };
 
+// The state-noise seed of the next launch of this library. The launcher
+// copies it here from the device memory its caller names, on the launch's
+// stream, so a captured CUDA graph seeds each replay from a buffer, and the
+// kernel reads it as a constant: a seed loaded into registers costs the
+// flagship build 16 registers and ~1% of its time (ptxas; PERF.md).
+// The slot is stream-ordered: the launches of one library must not run on
+// two streams at once.
+__constant__ unsigned long long c_seed;
+
 inline __host__ __device__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 inline int k_pad(int n_res, int n_in, int n_out) {
@@ -119,7 +128,7 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
                const float* __restrict__ o0,    // (B, n_out) or null
                int B, int T, int n_res, int n_in, int n_out, int Dg,
                int n_forget, int rows, int P, float noise,
-               float teacher_scaling, unsigned long long seed) {
+               float teacher_scaling) {
   constexpr int n_p = NJ4 * 64;
   constexpr int kThreads = threads_of(NJ4, kH), kWarps = kThreads / 32;
   constexpr int kTx = kThreads / kTy;  // threads along rows
@@ -161,7 +170,7 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
 
   const bool noisy = !(kOff & kNoNoise) && noise != 0.0f;
   curandStatePhilox4_32_10_t rng;
-  if (noisy) curand_init(seed, (unsigned long long)blockIdx.x * kThreads + tid, 0, &rng);
+  if (noisy) curand_init(c_seed, (unsigned long long)blockIdx.x * kThreads + tid, 0, &rng);
 
   // contraction rows [k_lo, k_hi) of Wc: all of it unless an ablation drops
   // the recurrence product or the feedback (whole chunks skipped)
@@ -405,7 +414,7 @@ template <int NJ4, int kH, bool kGrouped, int kOff = 0>
 int launch(const float* u_fm, const float* wc, const float* wout, float* out,
            const float* s0, const float* o0, int B, int T, int n_res, int n_in, int n_out, int Dg, int n_forget,
            int rows, int P, float noise, float teacher_scaling,
-           unsigned long long seed, cudaStream_t stream) {
+           const unsigned long long* seed, cudaStream_t stream) {
   const size_t smem = smem_bytes(n_res, n_in, n_out, kH, kGrouped ? P : 0);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(predict_kernel<NJ4, kH, kGrouped, kOff>,
@@ -420,10 +429,15 @@ int launch(const float* u_fm, const float* wc, const float* wout, float* out,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            need >= kSmemSm ? 100 : (int)(need * 100 / kSmemSm) + 1);
   if (e != cudaSuccess) return (int)e;
+  if (!(kOff & kNoNoise) && noise != 0.0f) {
+    e = cudaMemcpyToSymbolAsync(c_seed, seed, sizeof(c_seed), 0,
+                                cudaMemcpyDeviceToDevice, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   const int blocks = (B + rows - 1) / rows;
   predict_kernel<NJ4, kH, kGrouped, kOff><<<blocks, threads_of(NJ4, kH), smem, stream>>>(
       u_fm, wc, wout, out, s0, o0, B, T, n_res, n_in, n_out, Dg, n_forget,
-      rows, P, noise, teacher_scaling, seed);
+      rows, P, noise, teacher_scaling);
   return (int)cudaGetLastError();
 }
 
@@ -435,7 +449,7 @@ template <bool kGrouped>
 int launch_any(const float* u_fm, const float* wc, const float* wout,
                float* out, const float* s0, const float* o0, int B, int T, int n_res, int n_in, int n_out,
                int Dg, int n_forget, int rows, int height, int P, float noise,
-               float teacher_scaling, unsigned long long seed, void* stream) {
+               float teacher_scaling, const unsigned long long* seed, void* stream) {
   if (B <= 0 || T <= n_forget) return 0;
   if (rows <= 0 || rows > height || n_res <= 0 || Dg <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

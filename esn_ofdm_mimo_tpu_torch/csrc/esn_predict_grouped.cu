@@ -45,7 +45,7 @@ extern "C" int esn_predict_grouped_launch(const float* u_fm, const float* wc,
                                           int n_out, int Dg, int n_forget,
                                           int rows, int height, float noise,
                                           float teacher_scaling,
-                                          unsigned long long seed,
+                                          const unsigned long long* seed,
                                           void* stream) {
   if (Dg <= 1 || B % Dg || rows <= 0) return (int)cudaErrorInvalidValue;
   const int P = esn_predict::grouped_slots(B / Dg, Dg, rows);

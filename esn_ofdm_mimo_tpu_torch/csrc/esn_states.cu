@@ -60,8 +60,9 @@
 //   * fp32 fused multiply-adds throughout (no TF32, no bf16): the sums
 //     differ from the plain version's matmuls by rounding only.
 //   * State noise is Philox-4x32-10 (curand_kernel.h), one subsequence per
-//     (cluster, rank, thread), seeded by the wrapper, added only to real
-//     neurons.
+//     (cluster, rank, thread), added only to real neurons. Its 64-bit seed
+//     is read from device memory (one load a thread), so a captured CUDA
+//     graph draws the stream of whatever seed the buffer holds at replay.
 //
 // What holds it now (tools/bench_states_torch.py on an H100): shared-memory
 // bandwidth. A step of a tile reads the CTA's whole slice (190 KB at NBF,
@@ -317,7 +318,7 @@ esn_states_cluster_kernel(const float* __restrict__ u,    // (B, T, n_in) scaled
                           float* __restrict__ out,        // (B, T, n_res)
                           int B, int T, int n_res, int n_in, int n_out,
                           int rows_per_cluster, float noise,
-                          unsigned long long seed) {
+                          const unsigned long long* seed) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   Cta c;
@@ -363,7 +364,7 @@ esn_states_cluster_kernel(const float* __restrict__ u,    // (B, T, n_in) scaled
 
   curandStatePhilox4_32_10_t rng;
   if (noise != 0.0f)
-    curand_init(seed, (unsigned long long)blockIdx.x * c.nthr + c.tid, 0, &rng);
+    curand_init(*seed, (unsigned long long)blockIdx.x * c.nthr + c.tid, 0, &rng);
 
   const int row_lo = cid * rows_per_cluster;
   const int row_hi = min(B, row_lo + rows_per_cluster);
@@ -397,7 +398,7 @@ template <int RT>
 int launch_rt(const float* u, const float* d, const float* wsl, float* out,
               int B, int T, int n_res, int n_in, int n_out, int C,
               int clusters, int rows_per_cluster, float noise,
-              unsigned long long seed, cudaStream_t stream, int* max_clusters) {
+              const unsigned long long* seed, cudaStream_t stream, int* max_clusters) {
   auto kernel = esn_states_cluster_kernel<RT>;
   const int K = n_res + n_in + n_out;
   const int CP = cols_pad(n_res, C);
@@ -435,7 +436,7 @@ int launch_rt(const float* u, const float* d, const float* wsl, float* out,
 int dispatch(const float* u, const float* d, const float* wsl, float* out,
              int B, int T, int n_res, int n_in, int n_out, int C, int clusters,
              int rows_per_cluster, int RT, float noise,
-             unsigned long long seed, cudaStream_t stream, int* max_clusters) {
+             const unsigned long long* seed, cudaStream_t stream, int* max_clusters) {
   const int CP = cols_pad(n_res, C);
   const int K = n_res + n_in + n_out;
   if ((C != 2 && C != 4 && C != 8 && C != 16) || CP / 4 > kMaxGroups ||
@@ -475,14 +476,14 @@ extern "C" int esn_states_max_clusters(int n_res, int n_in, int n_out, int C,
                                        int RT, int* count) {
   *count = 0;
   return dispatch(nullptr, nullptr, nullptr, nullptr, 0, 0, n_res, n_in,
-                  n_out, C, 1, RT, RT, 0.0f, 0ULL, nullptr, count);
+                  n_out, C, 1, RT, RT, 0.0f, nullptr, nullptr, count);
 }
 
 extern "C" int esn_states_launch(const float* u, const float* d,
                                  const float* wsl, float* out, int B, int T,
                                  int n_res, int n_in, int n_out, int C,
                                  int clusters, int rows_per_cluster, int RT,
-                                 float noise, unsigned long long seed,
+                                 float noise, const unsigned long long* seed,
                                  void* stream) {
   if (B <= 0 || T <= 0) return 0;
   return dispatch(u, d, wsl, out, B, T, n_res, n_in, n_out, C, clusters,

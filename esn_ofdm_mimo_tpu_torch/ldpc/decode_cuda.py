@@ -20,9 +20,11 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..utils import build
+from ..utils.device import device_constant
 from .code import LdpcCode
 from .decode import (ALGOS, _check_args, _decode_flooding,
                      _decode_layered, _effective_cap, ldpc_decode_bp_plain,
@@ -141,21 +143,27 @@ def _fn(source: str, symbol: str, argtypes: tuple):
     return fn
 
 
-_CODE_TENSORS: dict = {}
+def _i32(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def _inv_perm(code: LdpcCode) -> np.ndarray:
+    return _i32(code.qc.inv_perm)
+
+
+def _shifts(code: LdpcCode) -> np.ndarray:
+    return _i32(code.qc.shifts)
+
+
+def _info_cols(code: LdpcCode) -> np.ndarray:
+    return _i32(code.qc.perm[code.m:])
 
 
 def _code_tensors(code: LdpcCode, device: torch.device):
     """(inv_perm, shifts, info columns) as int32 tensors on `device`, kept
     per (code, device) — codes come from the cached make_qc_ldpc."""
-    key = (id(code), str(device))
-    hit = _CODE_TENSORS.get(key)
-    if hit is None or hit[0] is not code:
-        qc = code.qc
-        as_i32 = lambda a: torch.as_tensor(a, dtype=torch.int32,
-                                           device=device).contiguous()
-        hit = _CODE_TENSORS[key] = (code, as_i32(qc.inv_perm),
-                                    as_i32(qc.shifts), as_i32(qc.perm[code.m:]))
-    return hit[1:]
+    return tuple(device_constant(f, code, device=device)
+                 for f in (_inv_perm, _shifts, _info_cols))
 
 
 def _launch(code: LdpcCode, llr: torch.Tensor, truth, cap: int, algo: str,

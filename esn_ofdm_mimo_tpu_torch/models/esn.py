@@ -162,14 +162,15 @@ def _readout_lstsq(ext: torch.Tensor, tgt: torch.Tensor,
 
 
 def esn_fit(res: EsnReservoir, scale: EsnScale, inputs: torch.Tensor,
-            outputs: torch.Tensor, n_forget: int, seed: int = 0,
+            outputs: torch.Tensor, n_forget: int, seed=0,
             rel_jitter: float = 1e-7, return_carry: bool = False):
     """Train the readouts of B sequences that share one reservoir: inputs
     (B, T, n_in) and outputs (B, T, n_out) raw -> Wt_out (B, n_res + n_in,
     n_out), pyESN's W_out transposed. The states come from the CUDA
     state-harvest kernel on the card (its plain version on the CPU), state
-    noise seeded with `seed`; the scaled inputs are appended and the first
-    `n_forget` rows left out of the solve (pyESN's `transient`).
+    noise seeded with `seed` (an int, or a one-element int64 tensor on the
+    inputs' device, `key_seed_tensor`'s); the scaled inputs are appended and
+    the first `n_forget` rows left out of the solve (pyESN's `transient`).
 
     With return_carry=True it also returns (laststate (B, n_res),
     lastoutput_scaled (B, n_out)), pyESN's laststate / lastoutput
@@ -268,3 +269,17 @@ def key_seed(key: torch.Tensor) -> int:
     (a torch.Generator, or the CUDA kernels' Philox)."""
     k0, k1 = (int(x) for x in key.reshape(-1)[:2].tolist())
     return (k0 << 32) | k1
+
+
+def key_seed_tensor(keys: torch.Tensor) -> torch.Tensor:
+    """`key_seed` of every key of a (..., 2) batch, computed where the keys
+    are: an int64 tensor (...,) whose bits are the unsigned 64-bit seed
+    (k0 << 32) | k1, so a k0 >= 2^31 reads as a negative int64. The CUDA
+    kernels read their seed from it in device memory: no host sync; the
+    plain versions seed a torch.Generator with the same 64 bits. The ESN
+    functions take its elements as their `seed` on either device."""
+    k = keys.to(torch.int64) & 0xFFFFFFFF
+    k0, k1 = k[..., 0], k[..., 1]
+    # k0 as a signed 32-bit value times 2^32 stays inside int64
+    return (k0 - ((k0 >> 31) << 32)) * (1 << 32) | k1
+

@@ -18,7 +18,13 @@ readout. The kernels work in fp32 throughout, like the plain version.
 
 State noise: the kernel draws it from Philox seeded with `seed`; the plain
 version from a torch.Generator seeded with the same value. The streams
-differ, the distribution (noise * (U(0,1) - 0.5)) is the same.
+differ, the distribution (noise * (U(0,1) - 0.5)) is the same. A launch
+takes the seed in device memory (copied on its stream into the library's
+constant slot, csrc/esn_predict_core.cuh:c_seed): `seed` is an int or a
+one-element int64 tensor on the inputs' device holding its 64 bits
+(models/esn.py:key_seed_tensor), so a caller can seed a launch without
+leaving the card, as a captured CUDA graph must
+(pipelines/cdl.py:run_cdl_cal_counters_chunks).
 """
 from __future__ import annotations
 
@@ -155,6 +161,31 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def device_seed(seed, device: torch.device) -> torch.Tensor:
+    """The noise seed as the kernels read it: one int64 on `device` holding
+    the seed's 64 bits. A tensor (`key_seed_tensor`'s, or an element of it)
+    passes as it is; an int is written there by a fill kernel, not copied
+    from the host."""
+    if isinstance(seed, torch.Tensor):
+        if (seed.dtype != torch.int64 or seed.numel() != 1
+                or seed.device != device):
+            raise ValueError(f"a seed tensor must hold one int64 on {device}; "
+                             f"got {seed.dtype} {tuple(seed.shape)} on "
+                             f"{seed.device}")
+        return seed
+    v = int(seed) & (2**64 - 1)
+    return torch.full((1,), v - 2**64 if v >= 2**63 else v,
+                      dtype=torch.int64, device=device)
+
+
+def host_generator(seed) -> torch.Generator:
+    """The plain versions' noise stream: a CPU torch.Generator seeded with
+    the seed's 64 bits (an int, or a one-element int64 tensor)."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(int(seed) & (2**64 - 1))
+    return gen
+
+
 def grouped_plan(B: int, G: int, n_res: int, n_in: int, n_out: int,
                  n_sm: int) -> Tiling | None:
     """K4's tiling of a (B rows, G readouts) call, or None where the grouped
@@ -183,7 +214,7 @@ def _lib(readout: str):
     smem.argtypes = [ctypes.c_int] * 5
     launch.argtypes = ([ctypes.c_void_p] * (4 if readout == "ablate" else 6)
                        + [ctypes.c_int] * (10 if readout == "ablate" else 9)
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_ulonglong,
+                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
                           ctypes.c_void_p])
     k_pad.restype = launch.restype = ctypes.c_int
     smem.restype = ctypes.c_longlong
@@ -256,7 +287,7 @@ def choose_readout(B: int, G: int, n_res: int, n_in: int, n_out: int,
 
 def _launch(readout: str, plan: Tiling, res: EsnReservoir, scale: EsnScale,
             Wt_out: torch.Tensor, inputs: torch.Tensor, n_forget: int,
-            seed: int, slots: int = 0, extra: tuple = (),
+            seed, slots: int = 0, extra: tuple = (),
             init_carry=None) -> torch.Tensor:
     """Lay the operands out and launch one predict kernel on PyTorch's
     current stream; raises where the launcher refuses or the launch fails.
@@ -280,11 +311,12 @@ def _launch(readout: str, plan: Tiling, res: EsnReservoir, scale: EsnScale,
              else broadcast_carry(init_carry, B, n_res, n_out, inputs))
     ptrs = () if readout == "ablate" else (None, None) if carry is None \
         else tuple(c.data_ptr() for c in carry)
+    seed_d = device_seed(seed, inputs.device)
     rc = launch(
         u_fm.data_ptr(), Wc.data_ptr(), wout.data_ptr(), out.data_ptr(),
         *ptrs, B, T, n_res, n_in, n_out, B // G, n_forget,
-        plan.rows_per_block, plan.height, *extra, float(res.noise), float(scale.teacher_scaling),
-        int(seed) & (2**64 - 1),
+        plan.rows_per_block, plan.height, *extra, float(res.noise),
+        float(scale.teacher_scaling), seed_d.data_ptr(),
         torch.cuda.current_stream(inputs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ESN predict ({readout}{list(extra)}) launch "
@@ -294,7 +326,7 @@ def _launch(readout: str, plan: Tiling, res: EsnReservoir, scale: EsnScale,
 
 def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
                      Wt_out: torch.Tensor, inputs: torch.Tensor,
-                     n_forget: int, seed: int = 0,
+                     n_forget: int, seed=0,
                      readout: str = "per_row",
                      tiling: Tiling | None = None,
                      init_carry=None) -> torch.Tensor:
@@ -306,15 +338,19 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
     height; the launcher refuses a height it has no build for).
     init_carry (s0, o0), rows (n_res,) / (n_out,) or (1, ·) broadcast or
     (B, ·), starts each row there (`esn_fit(..., return_carry=True)`);
-    None from zeros."""
+    None from zeros.
+
+    The launch copies the seed into its library's one `__constant__` slot
+    on the current stream (csrc/esn_predict_core.cuh:c_seed). So launches
+    of one library (K2's, K4's or K5's) must not run on two streams at
+    once: a kernel could read the other launch's seed. The port launches
+    them on one stream at a time."""
     global launches, launches_grouped
     if readout not in ("per_row", "grouped"):
         raise ValueError(f"unknown readout {readout!r}")
     if inputs.device.type == "cpu":
-        gen = torch.Generator(device="cpu")
-        gen.manual_seed(int(seed))
-        return esn_predict(res, scale, Wt_out, inputs, n_forget, gen,
-                           init_carry=init_carry)
+        return esn_predict(res, scale, Wt_out, inputs, n_forget,
+                           host_generator(seed), init_carry=init_carry)
     if inputs.device.type != "cuda":
         raise ValueError(f"unsupported device {inputs.device}")
     B, T, n_in, n_res, G, n_out = _check_operands(res, Wt_out, inputs,
@@ -342,7 +378,7 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
 
 def esn_predict_ablate_cuda(res: EsnReservoir, scale: EsnScale,
                             Wt_out: torch.Tensor, inputs: torch.Tensor,
-                            n_forget: int, seed: int = 0, *,
+                            n_forget: int, seed=0, *,
                             readout: bool = True, feedback: bool = True,
                             noise: bool = True, tanh: bool = True,
                             recurrence_dot: bool = True) -> torch.Tensor:
@@ -355,10 +391,8 @@ def esn_predict_ablate_cuda(res: EsnReservoir, scale: EsnScale,
     on = dict(readout=readout, feedback=feedback, noise=noise, tanh=tanh,
               recurrence_dot=recurrence_dot)
     if inputs.device.type == "cpu":
-        gen = torch.Generator(device="cpu")
-        gen.manual_seed(int(seed))
-        return esn_predict_ablate(res, scale, Wt_out, inputs, n_forget, gen,
-                                  **on)
+        return esn_predict_ablate(res, scale, Wt_out, inputs, n_forget,
+                                  host_generator(seed), **on)
     if inputs.device.type != "cuda":
         raise ValueError(f"unsupported device {inputs.device}")
     B, T, n_in, n_res, G, n_out = _check_operands(res, Wt_out, inputs,

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as Fn
 
 from ..utils import rng
-from .esn import EsnReservoir, EsnScale, esn_fit, key_seed
+from .esn import EsnReservoir, EsnScale, esn_fit, key_seed_tensor
 from .esn_cuda import choose_readout, esn_predict_cuda
 
 
@@ -68,7 +68,7 @@ def build_esn_input(y_cp: torch.Tensor, delay: int) -> torch.Tensor:
 
 def train_mimo_esn(res: EsnReservoir, scale: EsnScale, y_cp: torch.Tensor,
                    x_cp: torch.Tensor, delay: int, cp_len: int,
-                   seed: int = 0) -> torch.Tensor:
+                   seed=0) -> torch.Tensor:
     """Fit readouts for B coherence blocks -> Wt_out (B, F, 2*n_tx): states
     (K3 on the card), then the scaled inputs appended, then the ridge solve
     on rows [n_forget:] (JAX esn_mimo.train_mimo_esn, its Pallas branch).
@@ -80,7 +80,7 @@ def train_mimo_esn(res: EsnReservoir, scale: EsnScale, y_cp: torch.Tensor,
 def esn_detect_symbols(res: EsnReservoir, scale: EsnScale,
                        Wt_out: torch.Tensor, y_cp: torch.Tensor, delay: int,
                        cp_len: int, n_subcarriers: int, power_scale: float,
-                       seed: int = 0) -> torch.Tensor:
+                       seed=0) -> torch.Tensor:
     """One OFDM symbol per row: y_cp (B, n_rx, N+cp) -> X_hat (B, N, n_tx).
     Wt_out may be grouped, (G, F, n_out) with B % G == 0 (readout g serves
     the contiguous run of B//G rows). With ESN_TPU_PREDICT_READOUT=grouped
@@ -115,15 +115,16 @@ def block_reservoir(res_b: EsnReservoir, b: int) -> EsnReservoir:
 
 def train_mimo_esn_per_block(res_b: EsnReservoir, scale: EsnScale,
                              y_cp: torch.Tensor, x_cp: torch.Tensor,
-                             delay: int, cp_len: int, seeds: Sequence[int]
+                             delay: int, cp_len: int, seeds
                              ) -> torch.Tensor:
     """The fit of rng_mode="block" (JAX train_mimo_esn_per_block): block b
     fits on its own reservoir block_reservoir(res_b, b), state noise seeded
     with seeds[b], alone: y_cp (B, n_rx, T), x_cp (B, n_tx, T) -> Wt_out
-    (B, F, 2*n_tx), one K3 launch and one readout solve a block."""
+    (B, F, 2*n_tx), one K3 launch and one readout solve a block. seeds:
+    B ints, or a (B,) int64 tensor on y_cp's device (`key_seed_tensor`)."""
     return torch.cat([
         train_mimo_esn(block_reservoir(res_b, b), scale, y_cp[b:b + 1],
-                       x_cp[b:b + 1], delay, cp_len, int(seeds[b]))
+                       x_cp[b:b + 1], delay, cp_len, seeds[b])
         for b in range(y_cp.shape[0])])
 
 
@@ -131,18 +132,18 @@ def esn_detect_symbols_per_block(res_b: EsnReservoir, scale: EsnScale,
                                  Wt_out: torch.Tensor, y_cp: torch.Tensor,
                                  delay: int, cp_len: int,
                                  n_subcarriers: int, power_scale: float,
-                                 seeds: Sequence[int]) -> torch.Tensor:
+                                 seeds) -> torch.Tensor:
     """The detection of rng_mode="block" (JAX esn_detect_symbols_per_block):
     y_cp (B, D, n_rx, N+cp) -> X_hat (B, D, N, n_tx); block b's D symbols
     run on its reservoir and readout Wt_out[b], state noise seeded with
-    seeds[b], one K2 launch a block."""
+    seeds[b] (as in `train_mimo_esn_per_block`), one K2 launch a block."""
     N = n_subcarriers
     outs = []
     for b in range(y_cp.shape[0]):
         X_in = build_esn_input(y_cp[b], delay)
         pred = esn_predict_cuda(block_reservoir(res_b, b), scale,
                                 Wt_out[b:b + 1], X_in, delay + cp_len,
-                                int(seeds[b]))
+                                seeds[b])
         X_hat = torch.fft.fft(_deinterleave_reim(pred[:, :N]), dim=-1)
         outs.append((X_hat / N / power_scale).transpose(-1, -2))
     return torch.stack(outs)
@@ -150,7 +151,7 @@ def esn_detect_symbols_per_block(res_b: EsnReservoir, scale: EsnScale,
 
 def esn_nmse(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
              y_cp: torch.Tensor, x_cp: torch.Tensor, delay: int, cp_len: int,
-             isi_duration: int, seed: int = 0) -> torch.Tensor:
+             isi_duration: int, seed=0) -> torch.Tensor:
     """NMSE of the predicted waveform, the reference's nmse_for_delay
     (helper_mimo_esn_generic.py:40-56): y_cp (B, n_rx, T), x_cp (B, n_tx,
     T); per TX, the squared error of the first T - isi + 1 predicted samples
@@ -180,8 +181,8 @@ def select_delay_by_nmse(res: EsnReservoir, scale: EsnScale,
     for d in range(min_delay, max_delay + 1):
         kf, kp, key = rng.split(key, 3).unbind(0)
         Wt_out = train_mimo_esn(res, scale, y_cp, x_cp, d, cp_len,
-                                key_seed(kf))
+                                key_seed_tensor(kf))
         nmses.append(esn_nmse(res, scale, Wt_out, y_cp, x_cp, d, cp_len,
-                              isi_duration, key_seed(kp)))
+                              isi_duration, key_seed_tensor(kp)))
     table = torch.stack(nmses, dim=-1)
     return (min_delay + torch.argmin(table, dim=-1)).to(torch.int32), table

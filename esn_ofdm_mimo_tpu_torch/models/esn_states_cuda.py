@@ -10,7 +10,10 @@ plain version, models/esn.py:esn_states. fp32 throughout.
 
 State noise: the kernel draws it from Philox seeded with `seed`; the plain
 version from a torch.Generator seeded with the same value. The streams
-differ, the distribution (noise * (U(0,1) - 0.5)) is the same.
+differ, the distribution (noise * (U(0,1) - 0.5)) is the same. As for the
+predict kernels, `seed` is an int or a one-element int64 tensor on the
+inputs' device, which the kernel reads from device memory
+(models/esn_cuda.py:device_seed).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from ..utils import build
 from .esn import EsnReservoir, EsnScale, esn_states, scale_inputs
-from .esn_cuda import stacked_weights
+from .esn_cuda import device_seed, host_generator, stacked_weights
 
 # Launches of the kernel since the count was last reset (by the caller).
 launches = 0
@@ -163,7 +166,7 @@ def _lib():
     lib.esn_states_max_clusters.restype = ctypes.c_int
     lib.esn_states_launch.argtypes = ([ctypes.c_void_p] * 4
                                       + [ctypes.c_int] * 9
-                                      + [ctypes.c_float, ctypes.c_ulonglong,
+                                      + [ctypes.c_float, ctypes.c_void_p,
                                          ctypes.c_void_p])
     lib.esn_states_launch.restype = ctypes.c_int
     bad = [(n, C) for C in CLUSTER_SIZES for n in range(1, _N_RES_MAX + 1)
@@ -209,19 +212,19 @@ def device_plan(B: int, n_res: int, n_in: int, n_out: int,
 
 def esn_states_cuda(res: EsnReservoir, scale: EsnScale, inputs: torch.Tensor,
                     teachers_scaled: torch.Tensor,
-                    seed: int = 0) -> torch.Tensor:
+                    seed=0) -> torch.Tensor:
     """Drop-in for models/esn.esn_states: inputs (B, T, n_in) raw,
     teachers_scaled (B, T, n_out) -> states (B, T, n_res), states[:, 0] = 0.
+    `seed`: an int, or a one-element int64 tensor on the inputs' device.
     """
     if inputs.device.type == "cpu":
-        gen = torch.Generator(device="cpu")
-        gen.manual_seed(int(seed))
-        return esn_states(res, scale, inputs, teachers_scaled, gen)
+        return esn_states(res, scale, inputs, teachers_scaled,
+                          host_generator(seed))
     return _launch(res, scale, inputs, teachers_scaled, seed, None)
 
 
 def _launch(res: EsnReservoir, scale: EsnScale, inputs: torch.Tensor,
-            teachers_scaled: torch.Tensor, seed: int,
+            teachers_scaled: torch.Tensor, seed,
             plan: StatesPlan | None) -> torch.Tensor:
     """The kernel under `plan`, by default `device_plan`'s
     (tools/bench_states_torch.py times the others)."""
@@ -249,11 +252,12 @@ def _launch(res: EsnReservoir, scale: EsnScale, inputs: torch.Tensor,
     u = scale_inputs(scale, inputs).contiguous()
     d = teachers_scaled.contiguous()
     out = torch.empty(B, T, n_res, dtype=torch.float32, device=inputs.device)
+    seed_d = device_seed(seed, inputs.device)
     rc = _lib().esn_states_launch(
         u.data_ptr(), d.data_ptr(), wsl.data_ptr(), out.data_ptr(), B, T,
         n_res, n_in, n_out, plan.cluster, plan.clusters,
         plan.rows_per_cluster, plan.row_tile, float(res.noise),
-        int(seed) & (2**64 - 1),
+        seed_d.data_ptr(),
         torch.cuda.current_stream(inputs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"esn_states_launch failed at {plan}: CUDA error "

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..utils import rng
+from ..utils.device import device_constant
 
 # 3GPP TR 38.901 (Rel-16) Tables 7.7.2-1/-2/-3: normalized delays, powers.
 TDLA_NORM_DELAYS = np.array([
@@ -65,12 +66,17 @@ TDL_PROFILES = {
 }
 
 
-def exp_pdp(isi_duration: int, device=None) -> torch.Tensor:
-    """One-sided exponential PDP over isi taps, sum 1 (reference :162-164)."""
+def _exp_pdp_np(isi_duration: int) -> np.ndarray:
     cp = isi_duration - 1
     mag = np.exp(-np.arange(cp + 1) / max(cp / 9.0, 1e-12))
-    return torch.as_tensor((mag / mag.sum()).astype(np.float32),
-                           device=device)
+    return (mag / mag.sum()).astype(np.float32)
+
+
+def exp_pdp(isi_duration: int, device=None) -> torch.Tensor:
+    """One-sided exponential PDP over isi taps, sum 1 (reference :162-164).
+    A shared constant (utils/device.py:device_constant): not to be written
+    to."""
+    return device_constant(_exp_pdp_np, isi_duration, device=device)
 
 
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
@@ -124,18 +130,24 @@ def _tdl_split_matrix(profile: str, isi_duration: int, sample_rate_hz: float,
     return S
 
 
+def _tdl_powers(profile: str) -> np.ndarray:
+    pow_lin = 10.0 ** (TDL_PROFILES[profile][1] / 10.0)
+    return (pow_lin / pow_lin.sum()).astype(np.float32)
+
+
+def _tdl_split_f32(*args) -> np.ndarray:
+    return _tdl_split_matrix(*args).astype(np.float32)
+
+
 def draw_tdl_taps(keys: torch.Tensor, n_rx: int, n_tx: int,
                   isi_duration: int, sample_rate_hz: float,
                   delay_spread_ns: float, profile: str = "b") -> torch.Tensor:
     """keys (..., 2) -> (..., n_rx, n_tx, isi) complex64 TDL taps."""
     dev = keys.device
-    pow_lin = 10.0 ** (TDL_PROFILES[profile][1] / 10.0)
-    sqrt_pow = torch.sqrt(torch.as_tensor(
-        (pow_lin / pow_lin.sum()).astype(np.float32), device=dev))
-    split = torch.as_tensor(
-        _tdl_split_matrix(profile, isi_duration, float(sample_rate_hz),
-                          float(delay_spread_ns)).astype(np.float32),
-        device=dev)
+    sqrt_pow = torch.sqrt(device_constant(_tdl_powers, profile, device=dev))
+    split = device_constant(_tdl_split_f32, profile, isi_duration,
+                            float(sample_rate_hz), float(delay_spread_ns),
+                            device=dev)
     shape = (n_rx, n_tx, sqrt_pow.shape[0])
     kri = rng.split(keys)
     gr = rng.normal(kri[..., 0, :], shape) / _SQRT2 * sqrt_pow

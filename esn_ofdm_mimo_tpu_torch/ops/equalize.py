@@ -6,7 +6,7 @@ Port of esn_ofdm_mimo_tpu/ops/equalize.py (reference OFDM_SISO_NBF_LDPC.py
 
 The detect path's channel is fixed for every data symbol of a coherence
 block, so its weights W = (H^H H + reg I)^{-1} H^H are solved once per
-(block, subcarrier) by `torch.linalg.solve` on complex64 and applied to all
+(block, subcarrier) by an LU solve on complex64 and applied to all
 D symbols as one batched matmul (`equalizer_weights`, `apply_equalizer`).
 The per-symbol solves (`equalize_zf`, `equalize_mmse`, `equalize_persc`)
 keep the JAX package's real 2n_tx x 2n_tx embedding of the normal
@@ -76,11 +76,15 @@ def equalize_persc(Y: torch.Tensor, H: torch.Tensor, power_scale,
 
 
 def equalizer_weights(H: torch.Tensor, reg: float) -> torch.Tensor:
-    """H (..., n_rx, n_tx) complex -> W (..., n_tx, n_rx) complex."""
+    """H (..., n_rx, n_tx) complex -> W (..., n_tx, n_rx) complex. The LU
+    solve of `torch.linalg.solve` without its error check, which would read
+    the factorisation's status back to the host (a sync, and so no CUDA
+    graph capture); a singular system gives non-finite weights, as the JAX
+    package's solve does."""
     Hh = H.mH
     A = Hh @ H
     A = A + reg * torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
-    return torch.linalg.solve(A, Hh)
+    return torch.linalg.solve_ex(A, Hh, check_errors=False)[0]
 
 
 def apply_equalizer(W: torch.Tensor, Y: torch.Tensor, power_scale: float

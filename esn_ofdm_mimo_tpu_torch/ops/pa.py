@@ -13,9 +13,16 @@ def rapp_pa(x: torch.Tensor, a_clip, smoothness: float = 1.0) -> torch.Tensor:
     """Rapp soft clipping; `a_clip` is a float or broadcasts against the
     leading axes of x."""
     p = smoothness
-    a = torch.as_tensor(a_clip, dtype=torch.float32, device=x.device)
-    if a.ndim > 0:
-        a = a[..., None]
+    if isinstance(a_clip, (int, float, np.floating)):
+        # a 0-d tensor, as the division's operand must stay (a Python
+        # scalar divisor becomes a multiply by its reciprocal on the card),
+        # made by a fill rather than a copy from the host
+        a = torch.full((), float(a_clip), dtype=torch.float32,
+                       device=x.device)
+    else:
+        a = torch.as_tensor(a_clip, dtype=torch.float32, device=x.device)
+        if a.ndim > 0:
+            a = a[..., None]
     mag_ratio = x.abs() / a
     return x / (1.0 + mag_ratio ** (2 * p)) ** (1.0 / (2 * p))
 

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import device_constant
+
 
 @functools.lru_cache(maxsize=None)
 def _constellation_np(bits_per_symbol: int) -> np.ndarray:
@@ -26,8 +28,9 @@ def _constellation_np(bits_per_symbol: int) -> np.ndarray:
 
 
 def qam_constellation(bits_per_symbol: int, device=None) -> torch.Tensor:
-    """(M,) complex64 unit-power constellation."""
-    return torch.as_tensor(_constellation_np(bits_per_symbol), device=device)
+    """(M,) complex64 unit-power constellation (a shared constant, not to
+    be written to: utils/device.py:device_constant)."""
+    return device_constant(_constellation_np, bits_per_symbol, device=device)
 
 
 def qam_bit_labels(bits_per_symbol: int, device=None) -> torch.Tensor:
@@ -40,9 +43,12 @@ def pam_axis_points(bits_per_symbol: int, device=None) -> torch.Tensor:
     """(P,) normalized PAM coordinates of the square grid: the column-major
     constellation is separable, const[i*P + j] = pam[i] + 1j*pam[j]."""
     assert bits_per_symbol % 2 == 0
+    return device_constant(_pam_points_np, bits_per_symbol, device=device)
+
+
+def _pam_points_np(bits_per_symbol: int) -> np.ndarray:
     P = 2 ** (bits_per_symbol // 2)
-    return torch.as_tensor(
-        _constellation_np(bits_per_symbol)[:P].imag.copy(), device=device)
+    return _constellation_np(bits_per_symbol)[:P].imag.copy()
 
 
 def bits_to_symbols(bits: torch.Tensor, bits_per_symbol: int) -> torch.Tensor:
@@ -100,8 +106,9 @@ def _constellation_gray_np(bits_per_symbol: int) -> np.ndarray:
 
 
 def qam_constellation_gray(bits_per_symbol: int, device=None) -> torch.Tensor:
-    """(M,) complex64 Gray/Sionna-convention unit-power constellation."""
-    return torch.as_tensor(_constellation_gray_np(bits_per_symbol),
+    """(M,) complex64 Gray/Sionna-convention unit-power constellation (a
+    shared constant)."""
+    return device_constant(_constellation_gray_np, bits_per_symbol,
                            device=device)
 
 

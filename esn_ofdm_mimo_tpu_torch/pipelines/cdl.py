@@ -15,6 +15,9 @@ Detectors are "esn" and "mmse" (CDL_DETECTORS). Counters are int64.
 """
 from __future__ import annotations
 
+import os
+import time
+import traceback
 from typing import NamedTuple, Tuple
 
 import torch
@@ -23,6 +26,7 @@ from ..config import SimConfig
 from ..ldpc import ldpc_decode_bp_counts, llr_from_yobs, make_code
 from ..ops import est_sigma2_from_decision, qam_llrs_maxlog, \
     symbols_to_bits_hard
+from ..utils import rng
 from .common import data_bits_for_blocks, detect_data_symbols, synth_block
 
 CDL_DETECTORS = ("esn", "mmse")
@@ -72,17 +76,145 @@ def _detect(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor):
     return code, code_bits, info_bits, data
 
 
+def _cal_counters(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor):
+    """The calibration round up to its uncoded counters: (code_bits (B, D,
+    n_tx, n), X_hat detector -> (B, D, N, n_tx), bit errors detector -> int64
+    scalar)."""
+    _, code_bits, _, data = _detect(cfg, ebno_db, bkeys)
+    return code_bits, data.X_hat, _uncoded_counts(
+        code_bits, data.X_hat, cfg.ofdm.bits_per_symbol)
+
+
 def run_cdl_cal_blocks(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
                        ) -> CdlCalData:
     """Calibration phase: uncoded counts + (llr, bit) calibration data."""
     N, m = cfg.ofdm.n_subcarriers, cfg.ofdm.bits_per_symbol
-    _, code_bits, _, data = _detect(cfg, ebno_db, bkeys)
+    code_bits, X_hat, errs = _cal_counters(cfg, ebno_db, bkeys)
     B, D, n_tx = code_bits.shape[:3]
     return CdlCalData(
-        bit_errors=_uncoded_counts(code_bits, data.X_hat, m),
-        total_bits=code_bits.numel(),
-        llr={name: _llrs_for(Xh, m) for name, Xh in data.X_hat.items()},
+        bit_errors=errs, total_bits=code_bits.numel(),
+        llr={name: _llrs_for(Xh, m) for name, Xh in X_hat.items()},
         bits=code_bits.reshape(B, D, n_tx, N, m))
+
+
+class CalGraph(NamedTuple):
+    """One calibration chunk captured as a CUDA graph
+    (`run_cdl_cal_counters_chunks`): replaying it reads the chunk's keys
+    from `keys` and adds its bit errors into `acc`."""
+    key: tuple                  # (cfg, B, ebno_db, device, predict switch)
+    graph: torch.cuda.CUDAGraph
+    keys: torch.Tensor          # (B, 2) int64, the replay's input
+    acc: dict                   # detector -> int64 scalar accumulator
+    total_bits: int             # code bits of one chunk
+    capture_ms: float           # the capture's host wall time
+    pool_bytes: int             # device memory of the graph's pool
+
+
+# the most recent capture; a call with another key releases it
+_GRAPH: CalGraph | None = None
+
+
+def _capture(cfg: SimConfig, ebno_db: float, first_keys: torch.Tensor,
+             key: tuple) -> CalGraph:
+    """Warm one eager chunk up on a side stream (the nvcc builds, cuFFT
+    plans, the code's host construction, the kernels' attribute and
+    occupancy queries, the device constants), then capture one chunk.
+    Raises where the capture fails, naming the port's line that broke it."""
+    dev = first_keys.device
+    keys = first_keys.clone()
+    acc = {name: torch.zeros((), dtype=torch.int64, device=dev)
+           for name in CDL_DETECTORS}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        code_bits, _, _ = _cal_counters(cfg, ebno_db, keys)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.graph(graph):
+            # after the capture's own empty_cache: what the chunk reserves
+            # from here on is the graph's private pool
+            reserved = torch.cuda.memory_reserved(dev)
+            _, _, errs = _cal_counters(cfg, ebno_db, keys)
+            for name, a in acc.items():
+                a.add_(errs[name])
+            pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+    except Exception as e:
+        here = [f for f in traceback.extract_tb(e.__traceback__)
+                if f"{os.sep}esn_ofdm_mimo_tpu_torch{os.sep}" in f.filename]
+        at = (f"{here[-1].filename}:{here[-1].lineno} ({here[-1].line})"
+              if here else "outside the package")
+        raise RuntimeError(f"CUDA graph capture of the calibration chunk "
+                           f"failed at {at}: {e}") from e
+    capture_ms = 1e3 * (time.perf_counter() - t0)
+    return CalGraph(key=key, graph=graph, keys=keys, acc=acc,
+                    total_bits=code_bits.numel(), capture_ms=capture_ms,
+                    pool_bytes=pool_bytes)
+
+
+def cal_graph(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
+              ) -> CalGraph:
+    """The captured chunk of (cfg, B = bkeys.shape[0], ebno_db, the keys'
+    card), captured on first use with `bkeys` as its warm-up keys. Only the
+    most recent capture is kept: another key releases it, its graph and
+    its memory pool first."""
+    global _GRAPH
+    dev = bkeys.device
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    key = (cfg, bkeys.shape[0], float(ebno_db), dev,
+           os.environ.get("ESN_TPU_PREDICT_READOUT"))
+    if _GRAPH is not None and _GRAPH.key == key:
+        return _GRAPH
+    if _GRAPH is not None:
+        _GRAPH.graph.reset()
+        _GRAPH = None
+    with torch.cuda.device(dev):
+        _GRAPH = _capture(cfg, float(ebno_db), bkeys.to(dev), key)
+    return _GRAPH
+
+
+def run_cdl_cal_counters_chunks(cfg: SimConfig, ebno_db: float, bkeys2d
+                                ) -> Tuple[dict, int]:
+    """Uncoded counters over R x B calibration blocks: bkeys2d (R, B, 2)
+    keys -> (bit_errors: detector -> int64 scalar tensor, total_bits), the
+    sums over the chunks r of `run_cdl_cal_blocks(cfg, ebno_db,
+    bkeys2d[r])`'s. No LLRs are computed. The JAX package's
+    detection-throughput path (its lax.scan over chunks, one traced
+    program, counters accumulated on the device).
+
+    CPU keys run the chunks one after another with the plain kernels. CUDA
+    keys run one chunk captured as a CUDA graph (`cal_graph`, after one
+    eager warm-up chunk) and replay it R times, copying chunk r's keys into
+    its key buffer before replay r; nothing syncs the host until the caller
+    reads the counters. The kernels' launch counters count the launches
+    made from Python, the warm-up's and the capture's: a replay launches
+    the captured kernels from the graph and adds nothing to them (a trace
+    of the card counts those). A capture that fails raises: the card never
+    falls back to an eager loop."""
+    bkeys2d = rng.as_keys(bkeys2d)
+    R = bkeys2d.shape[0]
+    if bkeys2d.device.type == "cpu" or R == 0:
+        errs = {name: torch.zeros((), dtype=torch.int64,
+                                  device=bkeys2d.device)
+                for name in CDL_DETECTORS}
+        total = 0
+        for r in range(R):
+            code_bits, _, e = _cal_counters(cfg, ebno_db, bkeys2d[r])
+            for name in errs:
+                errs[name] += e[name]
+            total += code_bits.numel()
+        return errs, total
+    g = cal_graph(cfg, ebno_db, bkeys2d[0])
+    with torch.cuda.device(g.keys.device):
+        for a in g.acc.values():
+            a.zero_()
+        for r in range(R):
+            g.keys.copy_(bkeys2d[r])
+            g.graph.replay()
+        return ({name: a.clone() for name, a in g.acc.items()},
+                R * g.total_bits)
 
 
 def fit_logreg_1d(x: torch.Tensor, y: torch.Tensor, steps: int = 400,

@@ -31,7 +31,8 @@ import torch
 
 from ..config import SimConfig
 from ..ldpc import ldpc_encode
-from ..models.esn import EsnReservoir, EsnScale, init_reservoir, key_seed
+from ..models.esn import (EsnReservoir, EsnScale, init_reservoir,
+                          key_seed_tensor)
 from ..models.esn_mimo import (esn_detect_symbols,
                                esn_detect_symbols_per_block, stack_reservoirs,
                                train_mimo_esn, train_mimo_esn_per_block)
@@ -107,11 +108,6 @@ def _per_block(cfg: SimConfig) -> bool:
     if cfg.esn.rng_mode not in ("batch", "block"):
         raise ValueError(f"unknown esn rng_mode {cfg.esn.rng_mode!r}")
     return cfg.esn.rng_mode == "block"
-
-
-def _seeds(keys: torch.Tensor) -> list:
-    """The noise seed of each key of a (B, 2) batch."""
-    return [key_seed(k) for k in keys.cpu()]
 
 
 def _draw_taps(cfg: SimConfig, keys: torch.Tensor) -> torch.Tensor:
@@ -234,8 +230,9 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
             teacher_scaling=_f32(teacher_scaling))
         if per_block:
             return scale, train_mimo_esn_per_block(
-                res, scale, y, x, delay, cp, _seeds(rng.fold_in(bkeys, tag)))
-        seed = key_seed(rng.fold_in(bkeys[0], tag))
+                res, scale, y, x, delay, cp,
+                key_seed_tensor(rng.fold_in(bkeys, tag)))
+        seed = key_seed_tensor(rng.fold_in(bkeys[0], tag))
         return scale, train_mimo_esn(res, scale, y, x, delay, cp, seed)
 
     scale_m, Wt_out_m = fit(lb, y_cp, x_tgt, _K_ESNFIT,
@@ -302,10 +299,11 @@ def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
             # block b's symbols on its own reservoir, seeded from its key
             return esn_detect_symbols_per_block(
                 state.reservoir, scale, Wt_out, y_cp, delay, cp, N,
-                lb.sqrt_pi, _seeds(rng.fold_key(bkeys, _K_DETECT, tag)))
+                lb.sqrt_pi,
+                key_seed_tensor(rng.fold_key(bkeys, _K_DETECT, tag)))
         # rows are block-major (D symbols per block), so the (B, F, n_out)
         # readout passes grouped: row r uses readout r // D
-        seed = key_seed(rng.fold_key(bkeys[0], _K_DETECT, tag))
+        seed = key_seed_tensor(rng.fold_key(bkeys[0], _K_DETECT, tag))
         Xh = esn_detect_symbols(
             state.reservoir, scale, Wt_out, y_cp.reshape(B * D, n_rx, T),
             delay, cp, N, lb.sqrt_pi, seed)

@@ -29,7 +29,7 @@ import torch
 from ..config import SimConfig
 from ..models import zoo
 from ..models.elm import elm_fit, init_elm
-from ..models.esn import key_seed
+from ..models.esn import key_seed_tensor
 from ..models.esn_mimo import _deinterleave_reim, build_esn_io, esn_nmse
 from ..ops import symbols_to_bits_hard
 from ..utils import rng
@@ -169,11 +169,11 @@ def run_zoo_blocks(cfg: SimConfig, ebno_db: float, bkeys, epochs: int = 50,
     res, scale, W = state.reservoir, state.scale_m, state.Wt_out_m
     train_nmse["esn"] = float(esn_nmse(
         res, scale, W, y_cp, x_cp, delay, cp, ofdm.isi_duration,
-        key_seed(rng.fold_key(bkeys[0], _K_ZOO, 1))).sum())
+        key_seed_tensor(rng.fold_key(bkeys[0], _K_ZOO, 1))).sum())
     test_nmse["esn"] = float(esn_nmse(
         res, scale, W, y_cp_d.reshape(B * D, n_rx, T),
         x_cp_d.reshape(B * D, n_tx, T), delay, cp, ofdm.isi_duration,
-        key_seed(rng.fold_key(bkeys[0], _K_DETECT, 2))).reshape(B, D)
+        key_seed_tensor(rng.fold_key(bkeys[0], _K_DETECT, 2))).reshape(B, D)
         .mean(1).sum())
     clock.mark("nmse")
 

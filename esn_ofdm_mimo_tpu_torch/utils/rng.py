@@ -75,7 +75,14 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """jax.random.fold_in over a (..., 2) key batch; `data` an int or an
     int tensor broadcastable against the leading key axes."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    if isinstance(data, (int, np.integer)):
+        # a fill on the key's device, not a copy from the host (a copy
+        # syncs the stream, and no CUDA graph can capture it)
+        data = torch.full((), int(data) & _MASK, dtype=torch.int64,
+                          device=key.device)
+    else:
+        data = torch.as_tensor(data, dtype=torch.int64,
+                               device=key.device) & _MASK
     y0, y1 = threefry2x32(key[..., 0], key[..., 1],
                           torch.zeros_like(data), data)
     return torch.stack([y0, y1], dim=-1)

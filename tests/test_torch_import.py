@@ -43,7 +43,8 @@ def test_port_imports_with_jax_blocked():
             "esn_ofdm_mimo_tpu_torch.parallel.mesh, "
             "esn_ofdm_mimo_tpu_torch.parallel.seqshard, "
             "esn_ofdm_mimo_tpu_torch.utils.model_io, "
-            "esn_ofdm_mimo_tpu_torch.experiments.scaling\n"
+            "esn_ofdm_mimo_tpu_torch.experiments.scaling, "
+            "esn_ofdm_mimo_tpu_torch.utils.flops\n"
             "import runpy\n"
             "runpy.run_path('tools/bench_micro_torch.py', run_name='tool')\n"
             "import torch\n"

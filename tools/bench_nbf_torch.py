@@ -24,6 +24,10 @@ Then, in each repetition, the flagship point `cdl_snr_point` on
 calibration and one decode round at 12 dB: two ESN fits of G blocks), its
 phases and the same split of its fits.
 
+Each point's line ends with its counters (uncoded and info-bit errors;
+the flagship's calibration round's, then the decode round's uncoded, info,
+frame errors and BP iterations), so two trees' points compare bit for bit.
+
 Each piece is timed on the host clock between device synchronisations, so
 the split adds a few synchronisations to the phase it reads. The tool uses
 only the package beside it: a copy of it in another checkout times that
@@ -80,6 +84,13 @@ def _timed(split: dict, dev, fit, states, solve):
             wrap(solve, "solve"))
 
 
+def _counters(*dicts) -> str:
+    """Counter dicts (detector -> int or scalar tensor) as one JSON list,
+    to compare two trees' points bit for bit."""
+    return json.dumps([{k: int(v) for k, v in sorted(d.items())}
+                       for d in dicts])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=3)
@@ -115,23 +126,29 @@ def main(argv=None) -> int:
             split.clear()
             phases: dict = {}
             t0 = time.perf_counter()
-            nbf_snr_point(nbf, ebno, keys[ebno], device=dev, timings=phases)
+            pt = nbf_snr_point(nbf, ebno, keys[ebno], device=dev,
+                               timings=phases)
             wall = 1e3 * (time.perf_counter() - t0)
             print(f"[nbf point] rep {rep} {ebno} dB, {G} blocks: wall "
                   f"{wall:.1f} ms | phases "
                   f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}"
-                  f" | fits {json.dumps({k: round(v, 2) for k, v in split.items()})}",
+                  f" | fits {json.dumps({k: round(v, 2) for k, v in split.items()})}"
+                  f" | counters {_counters(pt.bit_errors, pt.info_errors)}",
                   flush=True)
         split.clear()
         phases = {}
         t0 = time.perf_counter()
-        cdl_snr_point(cdl, 12.0, ck[0], ck[1], device=dev, timings=phases)
+        pt = cdl_snr_point(cdl, 12.0, ck[0], ck[1], device=dev,
+                           timings=phases)
         wall = 1e3 * (time.perf_counter() - t0)
         fits = {k: round(v, 2) for k, v in split.items()}
+        c = pt.counts
         print(f"[flagship point] rep {rep} 12.0 dB, {G} blocks x (1 cal + 1 "
               f"decode): wall {wall:.1f} ms | phases "
               f"{json.dumps({k: round(v, 1) for k, v in phases.items()})}"
-              f" | fits {json.dumps(fits)}", flush=True)
+              f" | fits {json.dumps(fits)} | counters "
+              + _counters(pt.cal_bit_errors, c.bit_errors, c.info_errors,
+                          c.frame_errors, c.ldpc_iter_sum), flush=True)
     return 0
 
 
