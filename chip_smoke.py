@@ -129,15 +129,34 @@ nvcc per source, all started together; sm_90a), then:
        peak, the capture's ms and the graph pool's MiB; [cal chunks block]
        the same in rng_mode="block", 2 chunks of 4 blocks (K2 and K3 once
        a block);
+       [cdl snr step] the fused CDL point, parallel/montecarlo.py:
+       make_fused_cdl_snr_step, at bench.py's e2e shape (the flagship at 12
+       dB, 128 blocks, 2 calibration + 6 decode rounds, bench.py's keys):
+       the first call captures the cal, fit, detect and decode bodies as
+       CUDA graphs, 3 replayed calls on new keys; every counter and both
+       calibrators identical to the eager cdl_snr_point on the same keys,
+       a replayed call traced (K1 6, K2 8, K3 8 by kernel name; none from
+       Python) and one under set_sync_debug_mode("error"); the capture's
+       ms, the pool's MiB, the best replayed wall against the eager one
+       and e2e decoded symbols/s (8 x 128 x 75 / wall, bench.py's);
+       [cdl grid] make_fused_cdl_grid at 9, 12 and 15 dB, 128 blocks, 1 +
+       1 rounds: identical to the per-SNR loops of the fused step and of
+       the eager cdl_snr_point, the wall of each, launches from a trace;
        [curve] the CLI, esn_ofdm_mimo_tpu_torch.experiments.run.main, on
        mimo_4x8_cdl at 9, 12 and 15 dB, 256 blocks per SNR in rounds of 128
-       with the adaptive top-up and checkpoints: K1, K2, K3 launched, the
-       artifacts written and parsed, MMSE coded BER non-increasing; a second
-       call with --resume launches nothing and writes the same CSV; then
-       `run_cdl_curve` on the same keys with flooding at max_iter 100 and
-       with LdpcConfig(schedule="layered", max_iter=50): the layered kernel
-       launched and the flooding one not, MMSE coded BER in the flooding
-       run's band, decode ms of both;
+       with the adaptive top-up: without a checkpoint it takes the grid
+       route (recorded; the graph cache released first, so the run
+       captures its graphs and the wrappers count the warm-ups'
+       launches): K1, K2, K3 launched, the artifacts written and parsed,
+       MMSE coded BER non-increasing; with --resume (checkpoints: the
+       per-SNR step) and with --debug-nans (the eager route) on the same
+       keys it writes the same CSV; a second call with --resume launches
+       nothing and writes the same CSV; then `run_cdl_curve` (the grid
+       route, captured in the run as above) on the same keys with
+       flooding at max_iter 100 and with LdpcConfig(schedule="layered",
+       max_iter=50): the layered kernel launched and the flooding one not,
+       MMSE coded BER in the flooding run's band, decode ms of both (the
+       card's time between CUDA events);
        [curve nbf] the CLI on mimo_4x8_nbf at 3 and 12 dB, 128 blocks:
        artifacts written, BERs equal to `nbf_snr_point` on the same keys;
        [curve nbf qam6] the same with --qam-bits 6 at 12 dB: K1 at n =
@@ -195,15 +214,15 @@ nvcc per source, all started together; sm_90a), then:
        [dist nccl] a torch.distributed process group of world size 1 on
        NCCL from the variables torchrun sets (maybe_init_distributed):
        run_nbf_curve (mimo_4x8_nbf, 8 blocks) and run_cdl_curve
-       (mimo_4x8_cdl, 16 blocks) over it identical to the same calls
-       without a group, sharded_fir at one rank within 1e-6 of the FIR,
+       (mimo_4x8_cdl, 16 blocks; the fused route, as at one rank) over it
+       identical to the same calls without a group, sharded_fir at one rank within 1e-6 of the FIR,
        the group destroyed afterwards; [scaling] the scaling CLI
        (experiments/scaling.py --fast) at one NCCL rank, its --out read
        (one card: no scaling efficiency).
      No QC path may reach the graph decoder (its count stays 0);
   8. one JSON line listing the kernels (launches on the main paths: the
-     wrappers' counts, and for the graph replays the kernels of their
-     trace; error
+     wrappers' counts, and for the phases with CUDA graph replays the
+     kernels of their trace; error
      against the plain version, times, bound: the largest of bytes over the
      memory rate, fp32 operations over the fp32 peak and transcendentals
      over the special-function unit's rate; library_ms the cuDNN RNN's for
@@ -213,9 +232,10 @@ nvcc per source, all started together; sm_90a), then:
 Every phase ends in torch.cuda.synchronize(); any failure exits non-zero
 before the final line. Without CUDA it exits 1 and prints no result.
 
---profile adds one more run of the flagship and the 12 dB NBF main paths
-and of [cal chunks]'s 16 replays under torch.profiler and prints the device
-time by kernel and the device's busy share of each run's wall time.
+--profile adds one more run of the flagship and the 12 dB NBF main paths,
+of [cal chunks]'s 16 replays and of one replayed [cdl snr step] call under
+torch.profiler and prints the device time by kernel and the device's busy
+share of each run's wall time.
 """
 from __future__ import annotations
 
@@ -1275,17 +1295,26 @@ def main() -> None:
     # ---- 7. the main paths at full width ------------------------------------
     launches_total = {name: 0 for _, _, name in counters}
 
-    def count_run(run, need, what: str):
+    def count_run(run, need, what: str, traced: bool = False):
         """Run `run` with every launch count reset just before and read just
-        after; the kernels in `need` must have launched."""
+        after; the kernels in `need` must have launched. With `traced` the
+        run is traced (torch.profiler) and its launches are the kernels the
+        card ran, counted by name: a CUDA graph's replays launch nothing
+        from Python. The wall is then the traced run's."""
         sync()
         reset_counts()
         phases = {}
         t0 = time.perf_counter()
-        out = run(phases)
+        if traced:
+            out, per = _trace_kernels(lambda: run(phases))
+        else:
+            out = run(phases)
         sync()
         wall = time.perf_counter() - t0
         launches = read_counts()
+        if traced:
+            launches = dict(_traced_launches(per, launches),
+                            graph_decode=launches["graph_decode"])
         _check(all(launches[k] > 0 for k in need),
                f"{what}: a kernel of the path was never launched: {launches}")
         _check("graph_decode" in need or launches["graph_decode"] == 0,
@@ -1509,7 +1538,7 @@ def main() -> None:
     def same(a, b) -> bool:
         """Counters, calibrators and curves equal, bit for bit."""
         if isinstance(a, torch.Tensor):
-            return torch.equal(a, b)
+            return torch.equal(a.cpu(), b.cpu())
         if isinstance(a, np.ndarray):
             return np.array_equal(a, b)
         if isinstance(a, dict):
@@ -1585,10 +1614,7 @@ def main() -> None:
         # torch.profiler), by kernel name
         (got_t, per), _, _, la_py = count_run(
             lambda ph: _trace_kernels(chunks), (), what)
-        la = {k: 0 for k in la_py}
-        for name, (_, n) in per.items():
-            if _counter_of(name):
-                la[_counter_of(name)] += n
+        la = _traced_launches(per, la_py)
         for k, v in la.items():
             launches_total[k] += v
         _check(not any(la_py.values()),
@@ -1643,6 +1669,114 @@ def main() -> None:
         cfg.esn, rng_mode="block"))
     cal_chunks(cfg_cb, "cal chunks block", 2, 4, 4)
 
+    # ---- the fused CDL route: one SNR point, then the SNR grid -------------
+    # [cdl snr step]: make_fused_cdl_snr_step at bench.py's e2e shape (the
+    # flagship at 12 dB, 128 blocks, 2 cal + 6 decode rounds, keys
+    # block_keys(root, 1, ids) in bench.py's order: call i takes ids
+    # [8i, 8i + 8) x 128). The first call captures the cal, fit, detect and
+    # decode bodies; then 3 replayed calls on new keys (best wall), the
+    # eager cdl_snr_point on call 1's keys (every counter and both
+    # calibrators identical), one replayed call traced (K1, K2, K3 counted
+    # by name; nothing launched from Python) and one under
+    # set_sync_debug_mode("error")
+    from esn_ofdm_mimo_tpu_torch.parallel import montecarlo as tmc
+    Rc_s, Rd_s = 2, 6
+    R_s = Rc_s + Rd_s
+
+    def step_keys(i):
+        ids = torch.arange(i * R_s * G_main, (i + 1) * R_s * G_main)
+        k = rng.block_keys(root, 1, ids).reshape(R_s, G_main, 2).to(dev)
+        return k[:Rc_s], k[Rc_s:]
+
+    keys_s = [step_keys(i) for i in range(4)]
+    step = tmc.make_fused_cdl_snr_step(cfg)
+    wall_first = wall_s(lambda: tmc._host_point(step(ebno, *keys_s[0])))
+    cap_ms, pool_b = tmc._rounds(cfg, G_main, dev).capture_stats()
+    pool_all = cdl_pipe.graph_pool_bytes(dev)
+    pts_s, walls_s = [], []
+    for i in (1, 2, 3):
+        walls_s.append(wall_s(lambda i=i: pts_s.append(
+            tmc._host_point(step(ebno, *keys_s[i])))))
+    eager_s = []
+    wall_eager_s = wall_s(lambda: eager_s.append(
+        cdl_snr_point(cfg, ebno, *keys_s[1])))
+    _check(same(pts_s[0].cal_bit_errors, eager_s[0].cal_bit_errors)
+           and pts_s[0].cal_total_bits == eager_s[0].cal_total_bits
+           and same(pts_s[0].counts, eager_s[0].counts)
+           and same(pts_s[0].calib, eager_s[0].calib),
+           f"cdl snr step: the fused point differs from the eager one: "
+           f"{pts_s[0]} against {eager_s[0]}")
+    pt_t, _, _, la_s = count_run(
+        lambda ph: tmc._host_point(step(ebno, *keys_s[1])), (),
+        "cdl snr step", traced=True)
+    la_py = read_counts()
+    k3_round = 1 + (cfg.esn.train_ebno_fixed_db is not None)
+    _check(not any(la_py.values()),
+           f"cdl snr step: a replayed call launched from Python: {la_py}")
+    _check(la_s["bp_decode"] == Rd_s and la_s["esn_predict"] == R_s
+           and la_s["esn_states"] == k3_round * R_s
+           and same(pt_t, pts_s[0]),
+           f"cdl snr step: traced launches {la_s}, expected K1 {Rd_s}, K2 "
+           f"{R_s}, K3 {k3_round * R_s}, or another point")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pt_sync = step(ebno, *keys_s[2])
+    except RuntimeError as e:
+        _fail(f"cdl snr step: a replayed call synchronizes the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _check(same(tmc._host_point(pt_sync), pts_s[1]),
+           "cdl snr step: the call under sync debug mode gave another point")
+    best_s = min(walls_s)
+    syms_s = R_s * G_main * (D + 1)
+    c_s = pts_s[0].counts
+    _log(f"[cdl snr step] mimo_4x8_cdl {ebno} dB, {G_main} blocks x ({Rc_s} "
+         f"cal + {Rd_s} decode) rounds: counters and both calibrators "
+         f"identical to the eager cdl_snr_point on the same keys (info "
+         f"errors {c_s.info_errors}, frame errors {c_s.frame_errors} of "
+         f"{c_s.ldpc_codewords}, BP iterations {c_s.ldpc_iter_sum}); a "
+         f"replayed call syncs nowhere (sync debug mode) | capture "
+         f"{cap_ms:.1f} ms (cal, fit, detect, decode), the graph pool "
+         f"grew by {pool_b / 2**20:.1f} MiB to {pool_all / 2**20:.1f} MiB "
+         f"(one pool for every graph, the chunk's included), first call "
+         f"{1e3 * wall_first:.1f} ms | {smi}")
+    _log(f"[cdl snr step] wall ms: replayed {[round(1e3 * w, 3) for w in walls_s]}"
+         f" (best {1e3 * best_s:.3f}), eager cdl_snr_point "
+         f"{1e3 * wall_eager_s:.3f}, eager / replayed "
+         f"{wall_eager_s / best_s:.3f} | e2e decoded symbols/s ({R_s} x "
+         f"{G_main} x {D + 1} / wall): replayed {syms_s / best_s:.1f}, eager "
+         f"{syms_s / wall_eager_s:.1f} | launches in the trace of one "
+         f"replayed call {la_s} | {smi}")
+
+    # [cdl grid]: make_fused_cdl_grid at 9/12/15 dB, 128 blocks, 1 cal + 1
+    # decode round, against the per-SNR loops (the fused step and the eager
+    # cdl_snr_point) on the same keys: identical; the wall of each
+    c_3 = dataclasses.replace(cfg, ebno_db=(9.0, 12.0, 15.0))
+    grid_3 = tmc.make_fused_cdl_grid(c_3, G_main, 1, 1)
+    keys_3 = [rng.block_keys(root, jj, torch.arange(2 * G_main))
+              .reshape(2, G_main, 2).to(dev) for jj in range(3)]
+    wall_g1 = wall_s(lambda: grid_3(root))
+    got_3, loop_f, loop_e = [], [], []
+    wall_g3 = wall_s(lambda: got_3.extend(grid_3(root)))
+    wall_f3 = wall_s(lambda: loop_f.extend(
+        tmc._host_point(step(e, k[:1], k[1:]))
+        for e, k in zip(c_3.ebno_db, keys_3)))
+    wall_e3 = wall_s(lambda: loop_e.extend(
+        cdl_snr_point(c_3, e, k[:1], k[1:])
+        for e, k in zip(c_3.ebno_db, keys_3)))
+    _check(all(
+        same(a.cal_bit_errors, b.cal_bit_errors) and same(a.counts, b.counts)
+        and same(a.calib, b.calib)
+        for x in (loop_f, loop_e) for a, b in zip(got_3, x)),
+        "cdl grid: the grid differs from the per-SNR loops")
+    _log(f"[cdl grid] mimo_4x8_cdl 9/12/15 dB, {G_main} blocks x (1 cal + 1 "
+         f"decode) rounds: identical to the per-SNR loops of the fused step "
+         f"and of the eager cdl_snr_point | coded MMSE BER "
+         f"{[p.counts.info_errors['mmse'] / p.counts.total_info_bits for p in got_3]}"
+         f" | wall ms: grid {1e3 * wall_g3:.3f} (first call, the fit of one "
+         f"round captured: {1e3 * wall_g1:.3f}), step loop "
+         f"{1e3 * wall_f3:.3f}, eager loop {1e3 * wall_e3:.3f} | {smi}")
+
     # the micro-benchmark's predict group: the path that launches K5
     _, _, _, la_5 = count_run(
         lambda ph: micro.run_pred_variants(G_main, dev, rounds=4),
@@ -1656,15 +1790,42 @@ def main() -> None:
             rows = list(csv.reader(f))
         return rows[0], [[float(x) for x in r] for r in rows[1:]]
 
+    @contextlib.contextmanager
+    def routes_taken(log: list):
+        """Record which CDL route run_cdl_curve takes: the grid, the
+        per-SNR step or the eager point."""
+        names = ("make_fused_cdl_grid", "make_fused_cdl_snr_step",
+                 "cdl_snr_point")
+        saved = {n: getattr(tmc, n) for n in names}
+        for n, f in saved.items():
+            setattr(tmc, n, lambda *a, _n=n, _f=f, **k:
+                    log.append(_n) or _f(*a, **k))
+        try:
+            yield
+        finally:
+            for n, f in saved.items():
+                setattr(tmc, n, f)
+
     with tempfile.TemporaryDirectory() as tmp:
+        # the grid route (no checkpoint), its graphs released first so that
+        # the CLI captures them as a new process would (the wrappers count
+        # the warm-up's launches: a replay launches nothing from Python);
+        # then the per-SNR step (--resume: checkpoints) and the eager route
+        # (--debug-nans) on the same keys, each into its own directory: the
+        # same CSV
         out_c = os.path.join(tmp, "cdl")
-        argv = ["--preset", "mimo_4x8_cdl", "--ebno-list", "9,12,15",
-                "--blocks-per-device", "128", "--blocks-per-snr", "256",
-                "--adaptive-min-errors", "2000", "--adaptive-max-blocks",
-                "256", "--outdir", out_c, "--resume"]
-        _, _, wall_c, la_c = count_run(
-            lambda ph: cli.main(argv),
-            ("bp_decode", "esn_predict", "esn_states"), "curve")
+        argv_c = ["--preset", "mimo_4x8_cdl", "--ebno-list", "9,12,15",
+                  "--blocks-per-device", "128", "--blocks-per-snr", "256",
+                  "--adaptive-min-errors", "2000", "--adaptive-max-blocks",
+                  "256"]
+        route_g = []
+        cdl_pipe.release_graphs()
+        with routes_taken(route_g):
+            _, _, wall_c, la_c = count_run(
+                lambda ph: cli.main(argv_c + ["--outdir", out_c]),
+                ("bp_decode", "esn_predict", "esn_states"), "curve")
+        _check(route_g == ["make_fused_cdl_grid"],
+               f"curve: the CLI without a checkpoint took {route_g}")
         head, rows = read_csv(os.path.join(out_c, "results_ber.csv"))
         _check(head == ["EbNo(dB)", "ESN_uncoded", "MMSE_uncoded",
                         "ESN_coded", "MMSE_coded"]
@@ -1698,23 +1859,41 @@ def main() -> None:
         _check(len(topped) > 0, "curve: no SNR point was topped up although "
                "the target of 2000 failed codewords is out of reach at 15 dB")
         _log(f"[curve] CLI mimo_4x8_cdl 9/12/15 dB, 256 blocks per SNR in "
-             f"rounds of 128, adaptive to 256 decoded blocks: wall "
-             f"{1e3 * wall_c:.1f} ms | launches {la_c}")
+             f"rounds of 128, adaptive to 256 decoded blocks, the grid "
+             f"route: wall {1e3 * wall_c:.1f} ms (its graphs captured) | "
+             f"launches from Python (warm-ups) {la_c}")
         for r in rows:
             _log(f"[curve] EbNo {r[0]:g} dB: uncoded esn {r[1]:.4e} mmse "
                  f"{r[2]:.4e} | coded esn {r[3]:.4e} mmse {r[4]:.4e}")
         for m in topped:
             _log(f"[curve] {m}")
-        # resumed: every SNR point comes from its checkpoint
         csv_first = open(os.path.join(out_c, "results_ber.csv"), "rb").read()
-        _, _, wall_r, la_r = count_run(lambda ph: cli.main(argv), (),
-                                       "curve resume")
+        walls_r = {}
+        for tag, extra in (("step", ["--resume"]), ("eager", ["--debug-nans"])):
+            out_r, route_r = os.path.join(tmp, f"cdl_{tag}"), []
+            with routes_taken(route_r):
+                walls_r[tag] = wall_s(lambda: cli.main(
+                    argv_c + ["--outdir", out_r] + extra))
+            _check(set(route_r) == {"make_fused_cdl_snr_step" if tag == "step"
+                                    else "cdl_snr_point"},
+                   f"curve: the {tag} route took {route_r}")
+            _check(open(os.path.join(out_r, "results_ber.csv"), "rb").read()
+                   == csv_first,
+                   f"curve: the {tag} route wrote another CSV than the grid")
+        # resumed: every SNR point comes from its checkpoint
+        out_s = os.path.join(tmp, "cdl_step")
+        _, _, wall_r, la_r = count_run(
+            lambda ph: cli.main(argv_c + ["--outdir", out_s, "--resume"]), (),
+            "curve resume")
         _check(not any(la_r.values()),
                f"curve: the resumed call launched kernels: {la_r}")
-        _check(open(os.path.join(out_c, "results_ber.csv"), "rb").read()
+        _check(open(os.path.join(out_s, "results_ber.csv"), "rb").read()
                == csv_first, "curve: the resumed call wrote another CSV")
-        _log(f"[curve] second call with --resume: no launch, the same CSV, "
-             f"{1e3 * wall_r:.1f} ms")
+        _log(f"[curve] the per-SNR step (--resume, checkpoints) and the eager "
+             f"route (--debug-nans) on the same keys: the grid's CSV | wall "
+             f"ms step {1e3 * walls_r['step']:.1f}, eager "
+             f"{1e3 * walls_r['eager']:.1f}; a second call with --resume: no "
+             f"launch, the same CSV, {1e3 * wall_r:.1f} ms")
 
         # flooding at max_iter 100 against layered at max_iter 50, same keys
         cfg_c = dataclasses.replace(cfg, ebno_db=(9.0, 12.0, 15.0))
@@ -1724,12 +1903,13 @@ def main() -> None:
         for name, c_s, need, absent in (
                 ("flooding", cfg_c, "bp_decode", "bp_decode_layered"),
                 ("layered", cfg_l, "bp_decode_layered", "bp_decode")):
-            res_s, ph_s, wall_s, la_s = count_run(
+            cdl_pipe.release_graphs()     # captured in the run, as above
+            res_s, ph_s, wall_sc, la_sc = count_run(
                 lambda ph: run_cdl_curve(c_s, 256, blocks_per_round=128,
                                          progress=None, timings=ph),
                 (need, "esn_predict", "esn_states"), f"curve {name}")
-            _check(la_s[absent] == 0,
-                   f"curve {name}: the other BP kernel was launched: {la_s}")
+            _check(la_sc[absent] == 0,
+                   f"curve {name}: the other BP kernel was launched: {la_sc}")
             sched[name] = (res_s, ph_s)
             _log(f"[curve {name}] run_cdl_curve max_iter {c_s.ldpc.max_iter}:"
                  f" MMSE coded "
@@ -1739,7 +1919,8 @@ def main() -> None:
                  f"{[r['ldpc_unconverged_frac']['mmse'] for r in res_s]} | "
                  f"phases ms "
                  f"{json.dumps({k: round(v, 3) for k, v in ph_s.items()})} "
-                 f"wall {1e3 * wall_s:.1f} ms | launches {la_s}")
+                 f"wall {1e3 * wall_sc:.1f} ms (its graphs captured) | "
+                 f"launches from Python {la_sc}")
         for r_f, r_l in zip(sched["flooding"][0], sched["layered"][0]):
             b_f, b_l = r_f["ber_coded"]["mmse"], r_l["ber_coded"]["mmse"]
             _check(r_f["ber_uncoded"] == r_l["ber_uncoded"],
@@ -2269,9 +2450,9 @@ def main() -> None:
         # ---- torch.distributed at one NCCL rank ------------------------------
         # [dist nccl]: a process group of world size 1 from the variables
         # torchrun sets, through maybe_init_distributed(); the curves over
-        # its one rank (counters through all_reduce, calibration pairs
-        # through all_gather) against the same calls without a group, bit
-        # for bit; sharded_fir at one rank against the FIR; the group is
+        # its one rank (the NBF counters through all_reduce; the CDL curve
+        # takes the fused route, eager only over several ranks) against
+        # the same calls without a group, bit for bit; sharded_fir at one rank against the FIR; the group is
         # destroyed afterwards
         import socket
 
@@ -2365,14 +2546,21 @@ def main() -> None:
         _profile_main_path(
             "main", lambda: cdl_snr_point(cfg, ebno, keys[0], keys[1]),
             1e3 * wall)
-        # the 16 replays of one captured flagship chunk (captured again:
-        # the block-mode phase replaced the cached graph)
+        # the 16 replays of one captured flagship chunk (captured again
+        # where the graph cache has released it since)
         def chunks():
             return cdl_pipe.run_cdl_cal_counters_chunks(cfg, ebno,
                                                         keys_chunks)
 
         chunks()
         _profile_main_path("cal chunks", chunks, 1e3 * wall_chunks)
+        # one replayed call of the fused point at bench.py's e2e shape,
+        # after a call that captures its graphs again where released
+        def fused_point():
+            return tmc._host_point(step(ebno, *keys_s[1]))
+
+        fused_point()
+        _profile_main_path("cdl snr step", fused_point, 1e3 * best_s)
         _profile_main_path(
             "nbf main 12 dB",
             lambda: nbf_snr_point(nbf, 12.0, nbf_keys[12.0]),
@@ -2406,8 +2594,8 @@ def _trace_kernels(run):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the card's activity alone: host operators would add an event each
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = run()
         torch.cuda.synchronize()
     per = collections.defaultdict(lambda: [0.0, 0])
@@ -2416,6 +2604,16 @@ def _trace_kernels(run):
             per[e.name][0] += e.time_range.elapsed_us() / 1e3
             per[e.name][1] += 1
     return out, dict(per)
+
+
+def _traced_launches(per: dict, counts: dict) -> dict:
+    """The launches of a trace (`_trace_kernels`'s kernel name -> [ms, n])
+    for each counter name of `counts`."""
+    la = {k: 0 for k in counts}
+    for name, (_, n) in per.items():
+        if _counter_of(name):
+            la[_counter_of(name)] += n
+    return la
 
 
 def _counter_of(kernel: str):

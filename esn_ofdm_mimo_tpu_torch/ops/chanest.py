@@ -44,19 +44,23 @@ def ls_comb_estimate(Y_ls: torch.Tensor, X_ls_comb: torch.Tensor,
     return torch.movedim(H, -2, -3)
 
 
-def mmse_refine_td(H_ls: torch.Tensor, isi_duration: int, mmse_scaler: float
+def mmse_refine_td(H_ls: torch.Tensor, isi_duration: int, mmse_scaler
                    ) -> torch.Tensor:
-    """H_ls (..., N, n_rx, n_tx) -> H_mmse of the same shape."""
+    """H_ls (..., N, n_rx, n_tx) -> H_mmse of the same shape; mmse_scaler a
+    float or a 0-d float32 tensor. The scaler multiplies 1/pdp (what a
+    Python float over a tensor computes), so a tensor scaler gives the
+    float's values."""
     N = H_ls.shape[-3]
     pdp = exp_pdp(isi_duration, H_ls.device)
     c_ls = torch.fft.ifft(H_ls, dim=-3)[..., :isi_duration, :, :]
-    gain = 1.0 / (mmse_scaler / pdp[:, None, None] + 1.0)
+    gain = 1.0 / (pdp[:, None, None].reciprocal() * mmse_scaler + 1.0)
     return torch.fft.fft(c_ls * gain, n=N, dim=-3)
 
 
-def estimate_channel(Y_ls, X_ls_comb, power_scale: float, n_tx: int,
-                     isi_duration: int, mmse_scaler: float):
-    """LS + MMSE estimates; returns (H_ls, H_mmse)."""
+def estimate_channel(Y_ls, X_ls_comb, power_scale, n_tx: int,
+                     isi_duration: int, mmse_scaler):
+    """LS + MMSE estimates; returns (H_ls, H_mmse). power_scale and
+    mmse_scaler are floats or 0-d float32 tensors."""
     H_ls = ls_comb_estimate(Y_ls, X_ls_comb, power_scale, n_tx)
     return H_ls, mmse_refine_td(H_ls, isi_duration, mmse_scaler)
 

@@ -75,20 +75,23 @@ def equalize_persc(Y: torch.Tensor, H: torch.Tensor, power_scale,
     return equalize_mmse(Yk, H, ps, _real(noise_over_power, Y)[..., None])
 
 
-def equalizer_weights(H: torch.Tensor, reg: float) -> torch.Tensor:
-    """H (..., n_rx, n_tx) complex -> W (..., n_tx, n_rx) complex. The LU
+def equalizer_weights(H: torch.Tensor, reg) -> torch.Tensor:
+    """H (..., n_rx, n_tx) complex, reg a float or a 0-d float32 tensor ->
+    W (..., n_tx, n_rx) complex. The LU
     solve of `torch.linalg.solve` without its error check, which would read
     the factorisation's status back to the host (a sync, and so no CUDA
     graph capture); a singular system gives non-finite weights, as the JAX
     package's solve does."""
     Hh = H.mH
     A = Hh @ H
-    A = A + reg * torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    A = A + torch.eye(H.shape[-1], dtype=H.dtype, device=H.device) * reg
     return torch.linalg.solve_ex(A, Hh, check_errors=False)[0]
 
 
-def apply_equalizer(W: torch.Tensor, Y: torch.Tensor, power_scale: float
+def apply_equalizer(W: torch.Tensor, Y: torch.Tensor, power_scale
                     ) -> torch.Tensor:
-    """W (B, N, n_tx, n_rx), Y (B, D, n_rx, N) -> X_hat (B, D, N, n_tx)."""
+    """W (B, N, n_tx, n_rx), Y (B, D, n_rx, N) -> X_hat (B, D, N, n_tx);
+    power_scale a float or a 0-d float32 tensor (on the card a tensor
+    divides truly, a float multiplies by its reciprocal)."""
     Yk = Y.transpose(-1, -2)[..., None]                 # (B, D, N, n_rx, 1)
     return (W[:, None] @ Yk)[..., 0] / power_scale

@@ -36,7 +36,8 @@ def est_sigma2_from_decision(z: torch.Tensor, bits_per_symbol: int
 def _masked_llrs(d2: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """d2 (..., M) distances, labels (M, b) -> (..., b) d1_min - d0_min."""
     is1 = labels.bool()
-    inf = torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device)
+    # a fill, not a copy from the host (a copy would sync the stream)
+    inf = torch.full((), float("inf"), dtype=d2.dtype, device=d2.device)
     d = d2[..., None]
     d0 = torch.where(is1, inf, d).amin(-2)
     d1 = torch.where(is1, d, inf).amin(-2)

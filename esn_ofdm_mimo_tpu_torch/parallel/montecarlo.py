@@ -2,34 +2,51 @@
 esn_ofdm_mimo_tpu/parallel/montecarlo.py), on one GPU or over the ranks of
 a `torch.distributed` layout (parallel/mesh.py).
 
-Calibrated CDL (`cdl_snr_point`, the JAX `_cdl_snr_point` as driven by
-`make_fused_cdl_snr_step`):
+Calibrated CDL, the JAX `_cdl_snr_point`:
 
     cal rounds     run_cdl_cal_blocks per round of G blocks: uncoded
                    counters + (llr, bit) calibration pairs
     calibrator fit fit_calibrators on the stacked pairs (per-bit GD)
-    decode rounds  run_cdl_detect_llrs per round, then ONE
-                   cdl_decode_counters on the round-stacked LLRs (per-codeword
-                   decoding is independent, so this equals per-round decoding)
+    decode rounds  run_cdl_detect_llrs per round, and BP on its codewords
 
-`run_cdl_curve` sweeps the SNR grid with it: the round budget split into
-calibration and decode rounds, per-SNR keys block_keys(root, snr index,
-global block ids) with the calibration ids first, the adaptive top-up
-(extra decode rounds that continue the id stream until every detector has
-enough errors or the block cap is reached), per-SNR checkpoints and
-progress lines.
+It runs two ways, with the same counters and calibrators bit for bit:
+
+  * fused (`make_sharded_cdl_steps`, `make_fused_cdl_snr_step`,
+    `make_fused_cdl_grid`, the JAX builders): the bodies of
+    pipelines/cdl.py:CdlRounds, each captured once as a CUDA graph that
+    reads its Eb/N0 row (pipelines/common.py:EbnoRow), keys and
+    calibrators from device buffers, replayed for every round, SNR point
+    and call; counters stay on the card until the caller reads them. A
+    decode round decodes its own codewords (BP decodes each codeword
+    alone), so no stacked-LLR cap applies. On the CPU the same bodies run
+    eagerly with the plain kernels;
+  * eager (`cdl_snr_point`, `cdl_decode_rounds`): Python loops of the same
+    functions, one BP decode of the round-stacked LLRs, the counters read
+    as Python ints. The fused builders and `run_cdl_curve` take it by
+    configuration only, where `eager_reason` names one: a layout of
+    several ranks (the calibration pairs are gathered over the ranks), a
+    code without QC structure (the graph decoder compacts with
+    torch.nonzero) or an active `debug_nan_checks` (its checks read
+    values on the host). A capture that fails raises
+    (pipelines/cdl.py:GraphCaptureError); nothing falls back.
+
+`run_cdl_curve` sweeps the SNR grid as the JAX one does: without a
+checkpoint the whole grid (`make_fused_cdl_grid`), with one the per-SNR
+step, the adaptive top-up through `dec_step` (extra decode rounds that
+continue the id stream until every detector has enough errors or the block
+cap is reached). The round budget is split into calibration and decode
+rounds, per-SNR keys are block_keys(root, snr index, global block ids)
+with the calibration ids first; per-SNR checkpoints and progress lines.
 
 Block fading (`nbf_snr_point`, `run_nbf_curve`): rounds of run_nbf_blocks,
 counters summed per SNR, the same key stream (the one the JAX fused NBF grid
 folds on the device), the same top-up, checkpoints and progress, and
-`assemble_curve` into a `CurveResult`.
+`assemble_curve` into a `CurveResult`; eager (the NBF round's SVD checks
+convergence on the host).
 
-The JAX `lax.scan` over rounds becomes a Python loop and the fused
-whole-grid dispatch has no counterpart (eager). Counters are summed in
-int64 on the host, so the JAX package's int32 guards go away; the cap on
-round-stacked decode LLRs stays. `_call_with_retry` re-runs a call on a
-runtime failure: calls are pure functions of their keys, so a retry is
-exact.
+Counters are summed in int64, so the JAX package's int32 guards go away.
+`_call_with_retry` re-runs a call on a runtime failure: calls are pure
+functions of their keys, so a retry is exact.
 
 Over ranks (`mesh`, the JAX shard_map over the "trials" axis): the SNR
 points and curves take the same global keys on every rank; of each round
@@ -46,6 +63,7 @@ a round again would leave the others' collectives unmatched.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -54,16 +72,22 @@ import torch
 
 from ..config import SimConfig
 from ..pipelines.blockfading import NbfCounts, run_nbf_blocks
-from ..pipelines.cdl import (CDL_DETECTORS, CdlCounts, cdl_decode_counters,
-                             fit_calibrators, run_cdl_cal_blocks,
-                             run_cdl_detect_llrs)
+from ..pipelines.cdl import (CDL_DETECTORS, CdlCalData, CdlCounts, CdlRounds,
+                             GraphCaptureError, cached_graphs,
+                             cdl_decode_counters, fit_calibrators, graph_key,
+                             run_cdl_cal_blocks, run_cdl_detect_llrs)
+from ..pipelines.common import EbnoRow, ebno_rows
 from ..utils import rng
 from ..utils.device import resolve_device
-from ..utils.metrics import PhaseClock, check_finite
+from ..utils.metrics import (EventClock, PhaseClock, check_finite,
+                             nan_checks_enabled)
 from .mesh import TrialsMesh, all_gather_cat, all_sum
 
 
 class CdlSnrPoint(NamedTuple):
+    """One calibrated SNR point (the JAX step's (cal errors, cal bits,
+    CdlCounts, calib)). Its counters are Python ints, or, as the fused
+    step returns them, int64 0-d tensors on the card until read."""
     cal_bit_errors: dict       # detector -> uncoded errors over the cal rounds
     cal_total_bits: int
     counts: CdlCounts          # decode rounds: uncoded + coded counters, BP
@@ -226,6 +250,232 @@ def cdl_decode_rounds(cfg: SimConfig, ebno_db: float, dec_keys, calib: dict,
                               PhaseClock(dev, timings), mesh)
 
 
+def eager_reason(cfg: SimConfig, mesh: TrialsMesh | None = None
+                 ) -> str | None:
+    """Why the calibrated CDL route runs eagerly on this configuration, or
+    None where it runs fused (the three cases of the module docstring)."""
+    if mesh is not None and mesh.size > 1:
+        return "a layout of several ranks"
+    if not (cfg.ldpc.enabled and cfg.ldpc.family == "qc"):
+        return "a code without QC structure"
+    if nan_checks_enabled():
+        return "debug_nan_checks"
+    return None
+
+
+def _on(dev: torch.device):
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _rounds(cfg: SimConfig, G: int, dev: torch.device) -> CdlRounds:
+    """The cached CdlRounds of (cfg, G, card, predict switch)."""
+    key = graph_key(cfg, G, dev, "cdl")
+    return cached_graphs(key, lambda: CdlRounds(key[1], G, key[3]))
+
+
+def _stage_row(g: CdlRounds, cfg: SimConfig, ebno_db):
+    """Copy the row of `ebno_db` (a float, or an EbnoRow) into g.row: a
+    device-to-device copy from its staged row."""
+    g.row.copy_(torch.stack(tuple(ebno_db)) if isinstance(ebno_db, EbnoRow)
+                else ebno_rows(cfg, (ebno_db,), g.dev)[0])
+
+
+def _unpack(g: CdlRounds, cal_acc, dec_acc, calib, Rc: int, Rd: int
+            ) -> CdlSnrPoint:
+    """A point from packed counters (cal_acc (n_det,), dec_acc (5, n_det),
+    calib (n_det, 2, m)): tensors give tensor views, nested lists ints."""
+    def per(x):
+        return {d: x[i] for i, d in enumerate(CDL_DETECTORS)}
+
+    counts = CdlCounts(
+        bit_errors=per(dec_acc[0]), total_bits=Rd * g.code_bits,
+        info_errors=per(dec_acc[1]), total_info_bits=Rd * g.info_bits,
+        frame_errors=per(dec_acc[2]), ldpc_iter_sum=per(dec_acc[3]),
+        ldpc_unconverged=per(dec_acc[4]), ldpc_codewords=Rd * g.codewords)
+    return CdlSnrPoint(per(cal_acc), Rc * g.code_bits, counts,
+                       {d: (c[0], c[1]) for d, c in per(calib).items()})
+
+
+def _host_counts(c: CdlCounts) -> CdlCounts:
+    """CdlCounts with tensor counters read as Python ints."""
+    def ints(d):
+        return {k: int(v) for k, v in d.items()}
+    return c._replace(bit_errors=ints(c.bit_errors),
+                      info_errors=ints(c.info_errors),
+                      frame_errors=ints(c.frame_errors),
+                      ldpc_iter_sum=ints(c.ldpc_iter_sum),
+                      ldpc_unconverged=ints(c.ldpc_unconverged))
+
+
+def _host_point(pt: CdlSnrPoint) -> CdlSnrPoint:
+    return pt._replace(
+        cal_bit_errors={k: int(v) for k, v in pt.cal_bit_errors.items()},
+        counts=_host_counts(pt.counts))
+
+
+def make_sharded_cdl_steps(cfg: SimConfig, device=None,
+                           mesh: TrialsMesh | None = None):
+    """(cal_step, dec_step) of the calibrated CDL pipeline (JAX
+    make_sharded_cdl_steps):
+
+        cal_step(row, keys (G, 2)) -> CdlCalData: the round's uncoded
+            counters, raw LLRs and code bits, (G, D, n_tx, N, m)
+        dec_step(row, keys (Rd, G, 2), calib, timings=None) -> CdlCounts:
+            Rd decode rounds with the calibrators calib (detector -> (a,
+            b), tensors or array-likes)
+
+    `row` is an Eb/N0 float or its EbnoRow. Fused (`eager_reason` None):
+    the CdlRounds bodies, CUDA graphs on the card, counters int64 0-d
+    tensors on the device, no host sync until the caller reads them;
+    `timings`, when given, receives the detect and decode ms (CUDA events,
+    read at the end of the call). Eager (a `mesh` of several ranks, a code
+    without QC structure, debug_nan_checks): run_cdl_cal_blocks on this
+    rank's share of the keys, its counters summed over the ranks and its
+    pairs left on the rank (the JAX cal_step leaves them sharded), and
+    `cdl_decode_rounds`."""
+    dev = resolve_device(device)
+    reason = eager_reason(cfg, mesh)
+
+    def cal_step(row, keys) -> CdlCalData:
+        keys = rng.as_keys(keys, dev)
+        if reason is not None:
+            out = run_cdl_cal_blocks(cfg, row, _share(keys[None], mesh)[0])
+            sums = _sum_over_ranks(CdlSnrPoint(_ints(out.bit_errors),
+                                               out.total_bits, None, None),
+                                   mesh)
+            return out._replace(bit_errors=sums.cal_bit_errors,
+                                total_bits=sums.cal_total_bits)
+        with _on(dev):
+            g = _rounds(cfg, keys.shape[0], dev)
+            _stage_row(g, cfg, row)
+            g.keys.copy_(keys)
+            cal = g.body("cal")          # captured (and warmed up) first
+            g.cal_acc.zero_()
+            cal.run()
+            shape = (keys.shape[0], cfg.data_symbols_per_block,
+                     cfg.channel.n_tx, cfg.ofdm.n_subcarriers, g.m)
+            return CdlCalData(
+                bit_errors={d: g.cal_acc[i].clone()
+                            for i, d in enumerate(CDL_DETECTORS)},
+                total_bits=g.code_bits,
+                llr={d: g.llr[i].reshape(shape).clone()
+                     for i, d in enumerate(CDL_DETECTORS)},
+                bits=g.bits.reshape(shape).clone())
+
+    def dec_step(row, keys, calib: dict, timings: dict | None = None
+                 ) -> CdlCounts:
+        if reason is not None:
+            return cdl_decode_rounds(cfg, row, keys, calib, dev, timings,
+                                     mesh)
+        keys = rng.as_keys(keys, dev)
+        with _on(dev):
+            g = _rounds(cfg, keys.shape[1], dev)
+            _stage_row(g, cfg, row)
+            g.calib.copy_(torch.stack([torch.stack([
+                torch.as_tensor(x, dtype=torch.float32, device=dev)
+                for x in calib[d]]) for d in CDL_DETECTORS]))
+            g.prepare_decode(keys)
+            g.dec_acc.zero_()
+            clock = EventClock(dev, timings)
+            g.decode_rounds(keys, clock)
+            counts = _unpack(g, g.cal_acc, g.dec_acc.clone(), g.calib, 0,
+                             keys.shape[0]).counts
+            clock.flush()
+            return counts
+
+    return cal_step, dec_step
+
+
+def make_fused_cdl_snr_step(cfg: SimConfig, device=None):
+    """One SNR point a call (JAX make_fused_cdl_snr_step): step(ebno_db,
+    cal_keys (Rc, G, 2), dec_keys (Rd, G, 2), timings=None) ->
+    CdlSnrPoint, the round counts set by the keys' shapes.
+
+    On the card: the Eb/N0 row (ebno_db a float, or its EbnoRow) and each
+    round's keys are copied into the CdlRounds buffers (device to device),
+    the cal graph replayed Rc times (each round's pairs copied into slot r
+    of the fit's stacked input), the fit graph of Rc once, the detect and
+    decode graphs Rd times; the first call of a (cfg, G) captures them.
+    The point's counters are int64 0-d tensors on the card: nothing syncs
+    the host until the caller reads them (`timings`, when given, receives
+    each phase's ms from CUDA events and so syncs at the end). On the CPU
+    the same bodies run eagerly. Where `eager_reason` names a reason (a
+    code without QC structure, debug_nan_checks) the step is
+    `cdl_snr_point`."""
+    dev = resolve_device(device)
+    reason = eager_reason(cfg)
+
+    def step(ebno_db, cal_keys, dec_keys, timings: dict | None = None
+             ) -> CdlSnrPoint:
+        if reason is not None:
+            return cdl_snr_point(cfg, ebno_db, cal_keys, dec_keys, dev,
+                                 timings)
+        ck, dk = rng.as_keys(cal_keys, dev), rng.as_keys(dec_keys, dev)
+        with _on(dev):
+            g = _rounds(cfg, ck.shape[1], dev)
+            clock = EventClock(dev, timings)
+            _stage_row(g, cfg, ebno_db)
+            g.point(ck, dk, clock)
+            pt = _unpack(g, g.cal_acc.clone(), g.dec_acc.clone(),
+                         g.calib.clone(), ck.shape[0], dk.shape[0])
+            clock.flush()
+            return pt
+
+    return step
+
+
+def make_fused_cdl_grid(cfg: SimConfig, blocks_per_round: int,
+                        cal_rounds: int, dec_rounds: int, device=None):
+    """The whole SNR grid of cfg.ebno_db in one call (JAX
+    make_fused_cdl_grid): grid(root, timings=None) -> one host CdlSnrPoint
+    per SNR point, counters Python ints, calibrators CPU tensors.
+
+    It folds every point's keys on the device up front, block_keys(root,
+    snr index, ids 0 .. (cal_rounds + dec_rounds) * blocks_per_round - 1)
+    with the calibration ids first (the per-SNR path's stream), stages
+    every point's Eb/N0 row once, runs the step's replays for each point
+    and copies its counters and calibrators into stacked (n_snr, ...)
+    device buffers, and reads those once, at the end. Equal to the per-SNR
+    step (and to `cdl_snr_point`) on the same keys, bit for bit. Where
+    `eager_reason` names a reason it loops `cdl_snr_point`."""
+    dev = resolve_device(device)
+    G, Rc, Rd = blocks_per_round, cal_rounds, dec_rounds
+    ebnos = tuple(float(e) for e in np.asarray(cfg.ebno_db,
+                                               dtype=np.float32))
+    reason = eager_reason(cfg)
+
+    def grid(root, timings: dict | None = None) -> list:
+        root = rng.as_keys(root, dev)
+        ids = torch.arange((Rc + Rd) * G, device=dev)
+        keys = [rng.block_keys(root, jj, ids).reshape(Rc + Rd, G, 2)
+                for jj in range(len(ebnos))]
+        if reason is not None:
+            return [cdl_snr_point(cfg, e, k[:Rc], k[Rc:], dev, timings)
+                    for e, k in zip(ebnos, keys)]
+        with _on(dev):
+            g = _rounds(cfg, G, dev)
+            rows = ebno_rows(cfg, ebnos, dev)
+            n = len(ebnos)
+            cal_out = g.cal_acc.new_zeros((n,) + g.cal_acc.shape)
+            dec_out = g.dec_acc.new_zeros((n,) + g.dec_acc.shape)
+            calib_out = g.calib.new_zeros((n,) + g.calib.shape)
+            clock = EventClock(dev, timings)
+            for jj in range(n):
+                g.row.copy_(rows[jj])
+                g.point(keys[jj][:Rc], keys[jj][Rc:], clock)
+                cal_out[jj].copy_(g.cal_acc)
+                dec_out[jj].copy_(g.dec_acc)
+                calib_out[jj].copy_(g.calib)
+            cal_h, dec_h = cal_out.tolist(), dec_out.tolist()
+            calib_h = calib_out.cpu()
+            clock.flush()
+        return [_unpack(g, cal_h[j], dec_h[j], calib_h[j], Rc, Rd)
+                for j in range(n)]
+
+    return grid
+
+
 def _add_counts(a, b):
     """Field-wise sum of two counter NamedTuples (dict fields per key)."""
     return type(a)(*({k: x[k] + y[k] for k in x} if isinstance(x, dict)
@@ -285,7 +535,7 @@ class CurveResult:
 # them again only delays the real traceback. Runtime errors of the backend
 # (a failed launch, an allocation that did not fit) stay retryable.
 _NO_RETRY = (TypeError, ValueError, AssertionError, AttributeError, KeyError,
-             NotImplementedError, FloatingPointError)
+             NotImplementedError, FloatingPointError, GraphCaptureError)
 
 
 def _call_with_retry(step, args, retries: int = 2,
@@ -438,6 +688,15 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
     bumped to 1 + 1, loudly. Per SNR index jj the keys are block_keys(root,
     jj, ids) with the calibration ids first and the decode ids after.
 
+    The route, as the JAX package picks it: without a checkpoint the whole
+    grid in one call (`make_fused_cdl_grid`), with one the per-SNR step
+    (`make_fused_cdl_snr_step`), the top-up through `dec_step`
+    (`make_sharded_cdl_steps`); where `eager_reason` names a reason (a
+    `mesh` of several ranks, a code without QC structure, debug_nan_checks)
+    `cdl_snr_point` and `cdl_decode_rounds`, the decode rounds past ~6e8
+    bytes of round-stacked LLRs a detector in extra calls of
+    `rounds_per_call` rounds. Both routes give the same results.
+
     adaptive_min_errors: after the base budget, keep running decode rounds
     at an SNR point until every detector has at least this many failed
     codewords (uncoded bit errors with adaptive_on_uncoded), or until
@@ -446,9 +705,11 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
     where a fixed budget leaves run-to-run variance; an error-count rule
     spends blocks there and nowhere else.
 
-    `timings`, when given, receives the wall ms of each phase summed over
-    the sweep (cal, fit, detect, decode). Returns one dict per SNR point:
-    ebno_db, ber_uncoded, ber_coded, calib, ldpc_avg_iters,
+    `timings`, when given, receives the ms of each phase summed over the
+    sweep (cal, fit, detect, decode): wall ms on the eager route, the
+    card's ms between CUDA events on the fused one (where a call captures
+    its graphs, the captures fall in its cal phase). Returns one dict per
+    SNR point: ebno_db, ber_uncoded, ber_coded, calib, ldpc_avg_iters,
     ldpc_unconverged_frac; rank 0 of a `mesh` alone saves checkpoints."""
     dev = resolve_device(device)
     G = blocks_per_round * (1 if mesh is None else mesh.size)
@@ -463,16 +724,28 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
                  f"cal+decode rounds, so {cal_rounds + dec_rounds} rounds "
                  f"({(cal_rounds + dec_rounds) * G} blocks/SNR) will run")
     root = rng.prng_key(cfg.seed if seed is None else seed)
-    # decode rounds whose stacked f32 LLRs (one BP call) stay under ~6e8
-    # bytes per detector; the rest run as extra calls of R rounds
+    fused = eager_reason(cfg, mesh) is None
+    # eager: decode rounds whose stacked f32 LLRs (one BP call) stay under
+    # ~6e8 bytes per detector; the rest run as extra calls of R rounds
     bpb = (cfg.data_symbols_per_block * cfg.channel.n_tx
            * cfg.ofdm.n_subcarriers * cfg.ofdm.bits_per_symbol)
-    rd_first = min(dec_rounds, max(1, int(6e8 // (G * bpb * 4))))
+    rd_first = dec_rounds if fused else min(
+        dec_rounds, max(1, int(6e8 // (G * bpb * 4))))
     rd_extra = dec_rounds - rd_first
     R = max(1, min(rounds_per_call, rd_extra))
     max_dec_blocks = (4 * blocks_per_snr if adaptive_max_blocks is None
                       else adaptive_max_blocks)
     unit = "bit errors" if adaptive_on_uncoded else "failed codewords"
+
+    grid_pts = None
+    if fused:
+        if checkpoint is None:
+            grid = make_fused_cdl_grid(cfg, G, cal_rounds, rd_first, dev)
+            grid_pts = _call_with_retry(grid, (root, timings),
+                                        progress=progress, retries=retries)
+        else:
+            step = make_fused_cdl_snr_step(cfg, dev)
+        _, dec_step = make_sharded_cdl_steps(cfg, dev)
 
     ebnos = np.asarray(cfg.ebno_db, dtype=np.float32)
     results = []
@@ -483,15 +756,26 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
                 results.append(loaded)
                 continue
         first_dec = cal_rounds * G
-        pt = _call_with_retry(
-            cdl_snr_point,
-            (cfg, float(ebno), _round_keys(root, jj, 0, cal_rounds, G),
-             _round_keys(root, jj, first_dec, rd_first, G), dev, timings,
-             mesh), progress=progress, retries=retries)
+        keys = (_round_keys(root, jj, 0, cal_rounds, G),
+                _round_keys(root, jj, first_dec, rd_first, G))
+        if grid_pts is not None:
+            pt = grid_pts[jj]
+        elif fused:
+            pt = _host_point(_call_with_retry(
+                step, (float(ebno), *keys, timings), progress=progress,
+                retries=retries))
+        else:
+            pt = _call_with_retry(
+                cdl_snr_point, (cfg, float(ebno), *keys, dev, timings, mesh),
+                progress=progress, retries=retries)
         calib = pt.calib
 
         def run_rounds(first_id, n_rounds):
             keys = _round_keys(root, jj, first_id, n_rounds, G)
+            if fused:
+                return _host_counts(_call_with_retry(
+                    dec_step, (float(ebno), keys, calib, timings),
+                    progress=progress, retries=retries))
             return _call_with_retry(
                 cdl_decode_rounds,
                 (cfg, float(ebno), keys, calib, dev, timings, mesh),

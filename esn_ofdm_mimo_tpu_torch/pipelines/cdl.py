@@ -15,6 +15,8 @@ Detectors are "esn" and "mmse" (CDL_DETECTORS). Counters are int64.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import os
 import time
 import traceback
@@ -27,7 +29,8 @@ from ..ldpc import ldpc_decode_bp_counts, llr_from_yobs, make_code
 from ..ops import est_sigma2_from_decision, qam_llrs_maxlog, \
     symbols_to_bits_hard
 from ..utils import rng
-from .common import data_bits_for_blocks, detect_data_symbols, synth_block
+from .common import (EbnoRow, data_bits_for_blocks, detect_data_symbols,
+                     ebno_rows, row_view, synth_block)
 
 CDL_DETECTORS = ("esn", "mmse")
 
@@ -65,7 +68,7 @@ def _uncoded_counts(code_bits: torch.Tensor, X_hat: dict, m: int) -> dict:
             for name, Xh in X_hat.items()}
 
 
-def _detect(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor):
+def _detect(cfg: SimConfig, ebno_db: float | EbnoRow, bkeys: torch.Tensor):
     N, m = cfg.ofdm.n_subcarriers, cfg.ofdm.bits_per_symbol
     code = make_code(cfg.ldpc, N * m)
     state = synth_block(cfg, ebno_db, bkeys)
@@ -76,7 +79,8 @@ def _detect(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor):
     return code, code_bits, info_bits, data
 
 
-def _cal_counters(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor):
+def _cal_counters(cfg: SimConfig, ebno_db: float | EbnoRow,
+                  bkeys: torch.Tensor):
     """The calibration round up to its uncoded counters: (code_bits (B, D,
     n_tx, n), X_hat detector -> (B, D, N, n_tx), bit errors detector -> int64
     scalar)."""
@@ -85,9 +89,11 @@ def _cal_counters(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor):
         code_bits, data.X_hat, cfg.ofdm.bits_per_symbol)
 
 
-def run_cdl_cal_blocks(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
-                       ) -> CdlCalData:
-    """Calibration phase: uncoded counts + (llr, bit) calibration data."""
+def run_cdl_cal_blocks(cfg: SimConfig, ebno_db: float | EbnoRow,
+                       bkeys: torch.Tensor) -> CdlCalData:
+    """Calibration phase: uncoded counts + (llr, bit) calibration data.
+    ebno_db a float or its EbnoRow (pipelines/common.py), as in every
+    function of this module that takes one."""
     N, m = cfg.ofdm.n_subcarriers, cfg.ofdm.bits_per_symbol
     code_bits, X_hat, errs = _cal_counters(cfg, ebno_db, bkeys)
     B, D, n_tx = code_bits.shape[:3]
@@ -97,82 +103,184 @@ def run_cdl_cal_blocks(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
         bits=code_bits.reshape(B, D, n_tx, N, m))
 
 
-class CalGraph(NamedTuple):
-    """One calibration chunk captured as a CUDA graph
-    (`run_cdl_cal_counters_chunks`): replaying it reads the chunk's keys
-    from `keys` and adds its bit errors into `acc`."""
-    key: tuple                  # (cfg, B, ebno_db, device, predict switch)
-    graph: torch.cuda.CUDAGraph
-    keys: torch.Tensor          # (B, 2) int64, the replay's input
-    acc: dict                   # detector -> int64 scalar accumulator
-    total_bits: int             # code bits of one chunk
-    capture_ms: float           # the capture's host wall time
-    pool_bytes: int             # device memory of the graph's pool
+class GraphCaptureError(RuntimeError):
+    """A CUDA graph capture failed; the message names the port's line that
+    broke it. Deterministic, so never retried."""
 
 
-# the most recent capture; a call with another key releases it
-_GRAPH: CalGraph | None = None
+# The memory pool every CUDA graph of the port captures into, one a card:
+# the graphs replay one after another on one stream, and each reads and
+# writes only buffers made outside any capture, so their temporaries may
+# share memory. card -> [pool handle, graphs alive in it]: PyTorch frees a
+# pool once its last graph is reset, and a handle of a freed pool cannot
+# take another capture, so the entry goes with its last graph.
+_POOLS: dict = {}
 
 
-def _capture(cfg: SimConfig, ebno_db: float, first_keys: torch.Tensor,
-             key: tuple) -> CalGraph:
-    """Warm one eager chunk up on a side stream (the nvcc builds, cuFFT
-    plans, the code's host construction, the kernels' attribute and
-    occupancy queries, the device constants), then capture one chunk.
-    Raises where the capture fails, naming the port's line that broke it."""
-    dev = first_keys.device
-    keys = first_keys.clone()
-    acc = {name: torch.zeros((), dtype=torch.int64, device=dev)
-           for name in CDL_DETECTORS}
+def capture_graph(body, what: str, dev: torch.device):
+    """Run `body()` once eagerly on a side stream (the warm-up: nvcc builds,
+    cuFFT plans, codes' host construction, the kernels' attribute and
+    occupancy queries, device constants), then capture one call of it as a
+    CUDA graph in the card's shared pool. Returns (graph, the capture's
+    host ms, bytes the pool grew by). Raises GraphCaptureError where the
+    capture fails, naming the port's line that broke it."""
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(side):
-        code_bits, _, _ = _cal_counters(cfg, ebno_db, keys)
+        body()
     torch.cuda.current_stream(dev).wait_stream(side)
+    if dev not in _POOLS:
+        _POOLS[dev] = [torch.cuda.graph_pool_handle(), 0]
+    pool = _POOLS[dev]
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
     try:
-        with torch.cuda.graph(graph):
-            # after the capture's own empty_cache: what the chunk reserves
-            # from here on is the graph's private pool
+        with torch.cuda.graph(graph, pool=pool[0]):
+            # after the capture's own empty_cache: what the body reserves
+            # from here on is the pool's growth
             reserved = torch.cuda.memory_reserved(dev)
-            _, _, errs = _cal_counters(cfg, ebno_db, keys)
-            for name, a in acc.items():
-                a.add_(errs[name])
+            body()
             pool_bytes = torch.cuda.memory_reserved(dev) - reserved
     except Exception as e:
+        if not pool[1]:
+            del _POOLS[dev]
         here = [f for f in traceback.extract_tb(e.__traceback__)
                 if f"{os.sep}esn_ofdm_mimo_tpu_torch{os.sep}" in f.filename]
         at = (f"{here[-1].filename}:{here[-1].lineno} ({here[-1].line})"
               if here else "outside the package")
-        raise RuntimeError(f"CUDA graph capture of the calibration chunk "
-                           f"failed at {at}: {e}") from e
-    capture_ms = 1e3 * (time.perf_counter() - t0)
-    return CalGraph(key=key, graph=graph, keys=keys, acc=acc,
-                    total_bits=code_bits.numel(), capture_ms=capture_ms,
-                    pool_bytes=pool_bytes)
+        raise GraphCaptureError(f"CUDA graph capture of {what} failed at "
+                                f"{at}: {e}") from e
+    pool[1] += 1
+    return graph, 1e3 * (time.perf_counter() - t0), pool_bytes
+
+
+def _release_graph(graph, dev: torch.device):
+    """Reset a graph of `capture_graph`; its card's pool entry goes with
+    the last one."""
+    graph.reset()
+    _POOLS[dev][1] -= 1
+    if not _POOLS[dev][1]:
+        del _POOLS[dev]
+
+
+def _card(dev: torch.device) -> torch.device:
+    """`dev` with its index: "cuda" names the current card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def graph_pool_bytes(dev: torch.device) -> int:
+    """Device memory of the card's shared graph pool: its segments in the
+    caching allocator's snapshot."""
+    pool = _POOLS.get(_card(dev))
+    if pool is None:
+        return 0
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool[0]))
+
+
+class Body:
+    """One body of a round: a function that reads and writes only buffers
+    made before it. On the card it is captured once as a CUDA graph and
+    `run` replays it; on the CPU `run` calls the function."""
+
+    def __init__(self, fn, what: str, dev: torch.device):
+        self.fn, self.graph, self.dev = fn, None, dev
+        self.capture_ms, self.pool_bytes = 0.0, 0
+        if dev.type == "cuda":
+            self.graph, self.capture_ms, self.pool_bytes = capture_graph(
+                fn, what, dev)
+
+    def run(self):
+        if self.graph is None:
+            self.fn()
+        else:
+            self.graph.replay()
+
+    def release(self):
+        if self.graph is not None:
+            _release_graph(self.graph, self.dev)
+            self.graph = None
+
+
+# Captured graph sets (a calibration chunk, a CDL round set), the least
+# recently used released first past _CACHE_SIZE; `release_graphs` releases
+# them all
+_CACHE: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
+_CACHE_SIZE = 4
+
+
+def graph_key(cfg: SimConfig, G: int, dev: torch.device, kind: str) -> tuple:
+    """The cache key of a graph set: (kind, cfg without its Eb/N0 grid,
+    which the bodies read from their row buffer, blocks a round, card, the
+    predict switch ESN_TPU_PREDICT_READOUT, which picks K2 or K4). A set
+    is made from its key's cfg and card."""
+    return (kind, dataclasses.replace(cfg, ebno_db=()), int(G), _card(dev),
+            os.environ.get("ESN_TPU_PREDICT_READOUT"))
+
+
+def cached_graphs(key: tuple, make):
+    """The graph set of `key`, made by `make()` on first use."""
+    if key in _CACHE:
+        _CACHE.move_to_end(key)
+        return _CACHE[key]
+    while len(_CACHE) >= _CACHE_SIZE:
+        _CACHE.popitem(last=False)[1].release()
+    if key[3].type == "cuda":
+        with torch.cuda.device(key[3]):
+            _CACHE[key] = make()
+    else:
+        _CACHE[key] = make()
+    return _CACHE[key]
+
+
+def release_graphs():
+    """Release every cached graph set: its graphs and their memory."""
+    while _CACHE:
+        _CACHE.popitem()[1].release()
+
+
+class CalGraph:
+    """One calibration chunk captured as a CUDA graph
+    (`run_cdl_cal_counters_chunks`): replaying it reads the Eb/N0 row from
+    `row` and the chunk's keys from `keys`, and adds its bit errors into
+    `acc`."""
+
+    def __init__(self, cfg: SimConfig, ebno_db: float, first_keys):
+        dev = first_keys.device
+        self.cfg = cfg
+        self.row = ebno_rows(cfg, (ebno_db,), dev)[0].clone()
+        self.keys = first_keys.clone()          # (B, 2) int64
+        self.acc = {name: torch.zeros((), dtype=torch.int64, device=dev)
+                    for name in CDL_DETECTORS}
+        B, D = first_keys.shape[0], cfg.data_symbols_per_block
+        self.total_bits = (B * D * cfg.channel.n_tx * cfg.ofdm.n_subcarriers
+                           * cfg.ofdm.bits_per_symbol)
+        self.body = Body(self._chunk, "the calibration chunk", dev)
+        self.capture_ms, self.pool_bytes = (self.body.capture_ms,
+                                            self.body.pool_bytes)
+
+    def _chunk(self):
+        _, _, errs = _cal_counters(self.cfg, row_view(self.row), self.keys)
+        for name, a in self.acc.items():
+            a.add_(errs[name])
+
+    def release(self):
+        self.body.release()
 
 
 def cal_graph(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor
               ) -> CalGraph:
-    """The captured chunk of (cfg, B = bkeys.shape[0], ebno_db, the keys'
-    card), captured on first use with `bkeys` as its warm-up keys. Only the
-    most recent capture is kept: another key releases it, its graph and
-    its memory pool first."""
-    global _GRAPH
-    dev = bkeys.device
-    if dev.index is None:
-        dev = torch.device(dev.type, torch.cuda.current_device())
-    key = (cfg, bkeys.shape[0], float(ebno_db), dev,
-           os.environ.get("ESN_TPU_PREDICT_READOUT"))
-    if _GRAPH is not None and _GRAPH.key == key:
-        return _GRAPH
-    if _GRAPH is not None:
-        _GRAPH.graph.reset()
-        _GRAPH = None
-    with torch.cuda.device(dev):
-        _GRAPH = _capture(cfg, float(ebno_db), bkeys.to(dev), key)
-    return _GRAPH
+    """The captured chunk of (cfg, B = bkeys.shape[0], the keys' card, the
+    predict switch), captured on first use with `bkeys` as its warm-up keys
+    at `ebno_db`; a replay reads the Eb/N0 from the graph's row buffer, so
+    one capture serves every Eb/N0. Kept in the graph cache beside the
+    fused CDL route's sets."""
+    key = graph_key(cfg, bkeys.shape[0], bkeys.device, "chunk")
+    return cached_graphs(key, lambda: CalGraph(key[1], float(ebno_db),
+                                               bkeys.to(key[3])))
 
 
 def run_cdl_cal_counters_chunks(cfg: SimConfig, ebno_db: float, bkeys2d
@@ -186,13 +294,14 @@ def run_cdl_cal_counters_chunks(cfg: SimConfig, ebno_db: float, bkeys2d
 
     CPU keys run the chunks one after another with the plain kernels. CUDA
     keys run one chunk captured as a CUDA graph (`cal_graph`, after one
-    eager warm-up chunk) and replay it R times, copying chunk r's keys into
-    its key buffer before replay r; nothing syncs the host until the caller
-    reads the counters. The kernels' launch counters count the launches
-    made from Python, the warm-up's and the capture's: a replay launches
-    the captured kernels from the graph and adds nothing to them (a trace
-    of the card counts those). A capture that fails raises: the card never
-    falls back to an eager loop."""
+    eager warm-up chunk) and replay it R times, copying the Eb/N0 row into
+    its row buffer and chunk r's keys into its key buffer before replay r;
+    nothing syncs the host until the caller reads the counters. The
+    kernels' launch counters count the launches made from Python, the
+    warm-up's and the capture's: a replay launches the captured kernels
+    from the graph and adds nothing to them (a trace of the card counts
+    those). A capture that fails raises: the card never falls back to an
+    eager loop."""
     bkeys2d = rng.as_keys(bkeys2d)
     R = bkeys2d.shape[0]
     if bkeys2d.device.type == "cpu" or R == 0:
@@ -208,11 +317,12 @@ def run_cdl_cal_counters_chunks(cfg: SimConfig, ebno_db: float, bkeys2d
         return errs, total
     g = cal_graph(cfg, ebno_db, bkeys2d[0])
     with torch.cuda.device(g.keys.device):
+        g.row.copy_(ebno_rows(cfg, (ebno_db,), g.keys.device)[0])
         for a in g.acc.values():
             a.zero_()
         for r in range(R):
             g.keys.copy_(bkeys2d[r])
-            g.graph.replay()
+            g.body.run()
         return ({name: a.clone() for name, a in g.acc.items()},
                 R * g.total_bits)
 
@@ -296,8 +406,8 @@ def fit_calibrators(cfg: SimConfig, cal: dict, bits: torch.Tensor) -> dict:
     return out
 
 
-def run_cdl_detect_llrs(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
-                        calib: dict):
+def run_cdl_detect_llrs(cfg: SimConfig, ebno_db: float | EbnoRow,
+                        bkeys: torch.Tensor, calib: dict):
     """Decode-phase detection: (uncoded errs dict, total_bits, Lc dict
     detector -> (ncw, n) calibrated channel LLRs, info_bits (ncw, k)),
     ncw = B*D*n_tx codewords."""
@@ -340,8 +450,8 @@ def cdl_decode_counters(cfg: SimConfig, Lcs: dict, info_bits: torch.Tensor
     return out
 
 
-def run_cdl_decode_blocks(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
-                          calib: dict) -> CdlCounts:
+def run_cdl_decode_blocks(cfg: SimConfig, ebno_db: float | EbnoRow,
+                          bkeys: torch.Tensor, calib: dict) -> CdlCounts:
     """Decode phase for one batch: uncoded counts on every symbol and the
     calibrated-LLR decode of every codeword (reference :483-511)."""
     errs, total_bits, Lcs, u = run_cdl_detect_llrs(cfg, ebno_db, bkeys, calib)
@@ -352,3 +462,178 @@ def run_cdl_decode_blocks(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
                      ldpc_iter_sum=dec["iter_sum"],
                      ldpc_unconverged=dec["unconv"],
                      ldpc_codewords=u.shape[0])
+
+
+# the decode counters a CdlRounds set accumulates, in its dec_acc's rows
+DEC_COUNTERS = ("bit_errors", "info_errors", "frame_errors", "iter_sum",
+                "unconv")
+
+
+class CdlRounds:
+    """The calibrated point's bodies for rounds of G blocks on one device
+    (the fused CDL route, parallel/montecarlo.py). Each body reads and
+    writes only the buffers below, made before any capture:
+
+        cal     row, keys -> cal_acc += uncoded errors; llr, bits = the
+                round's raw (llr, bit) pairs, (S, m) a detector
+        fit     the pairs stacked over Rc rounds -> calib (a, b) a
+                detector (`fit_calibrators`); one body for each Rc, since
+                the max_fit_samples stride depends on it
+        detect  row, keys, calib -> dec_acc[bit_errors] += uncoded errors;
+                Lc, u = the round's calibrated LLRs and info bits
+        decode  Lc, u -> dec_acc[info/frame errors, iteration sum,
+                unconverged] += K1's counts (`cdl_decode_counters`)
+
+    Counters are int64 on the device, detectors in CDL_DETECTORS order. On
+    the card each body is a CUDA graph captured on first use (after one
+    eager call on a side stream, which warms up every first-use host step,
+    K1's code tensors among them) and replayed; on the CPU it runs. A
+    decode round is detect then decode: BP decodes each codeword alone,
+    with its own exit, so decoding each round alone counts what one decode
+    of the round-stacked LLRs counts."""
+
+    def __init__(self, cfg: SimConfig, G: int, dev: torch.device):
+        N, m = cfg.ofdm.n_subcarriers, cfg.ofdm.bits_per_symbol
+        code = make_code(cfg.ldpc, N * m)
+        n_det = len(CDL_DETECTORS)
+        self.cfg, self.G, self.dev, self.m = cfg, G, dev, m
+        ncw = G * cfg.data_symbols_per_block * cfg.channel.n_tx
+        self.code_bits = ncw * code.n             # code bits of a round
+        self.info_bits, self.codewords = ncw * code.k, ncw
+        S = self.code_bits // m                   # (llr, bit) pairs a round
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.row = zeros(7)
+        self.keys = zeros(G, 2, dtype=torch.int64)
+        self.calib = zeros(n_det, 2, m)
+        self.cal_acc = zeros(n_det, dtype=torch.int64)
+        self.dec_acc = zeros(len(DEC_COUNTERS), n_det, dtype=torch.int64)
+        self.llr, self.bits = zeros(n_det, S, m), zeros(S, m,
+                                                        dtype=torch.int8)
+        self.Lc = zeros(n_det, ncw, code.n)
+        self.u = zeros(ncw, code.k, dtype=torch.int8)
+        self.bodies, self.stacks = {}, {}
+
+    def body(self, name: str, Rc: int = 0) -> Body:
+        """The body `name` ("cal", "fit", "detect", "decode"; the fit's of
+        Rc rounds), captured on first use from the buffers as they are."""
+        key = (name, Rc) if name == "fit" else name
+        if key not in self.bodies:
+            fn = (self._fit_fn(Rc) if name == "fit"
+                  else getattr(self, f"_{name}"))
+            self.bodies[key] = Body(fn, f"the CDL {name} body", self.dev)
+        return self.bodies[key]
+
+    def stack(self, Rc: int):
+        """(llr (n_det, Rc, S, m), bits (Rc, S, m)): the pairs of Rc
+        calibration rounds, the fit's input."""
+        if Rc not in self.stacks:
+            self.stacks[Rc] = (
+                self.llr.new_zeros((self.llr.shape[0], Rc)
+                                   + self.llr.shape[1:]),
+                self.bits.new_zeros((Rc,) + self.bits.shape))
+        return self.stacks[Rc]
+
+    def _calib(self) -> dict:
+        return {d: (self.calib[i, 0], self.calib[i, 1])
+                for i, d in enumerate(CDL_DETECTORS)}
+
+    def _cal(self):
+        out = run_cdl_cal_blocks(self.cfg, row_view(self.row), self.keys)
+        for i, d in enumerate(CDL_DETECTORS):
+            self.cal_acc[i].add_(out.bit_errors[d])
+            self.llr[i].copy_(out.llr[d].reshape(-1, self.m))
+        self.bits.copy_(out.bits.reshape(-1, self.m))
+
+    def _fit_fn(self, Rc: int):
+        llr, bits = self.stack(Rc)
+
+        def fit():
+            calib = fit_calibrators(
+                self.cfg, {d: llr[i].reshape(-1, self.m)
+                           for i, d in enumerate(CDL_DETECTORS)},
+                bits.reshape(-1, self.m))
+            for i, d in enumerate(CDL_DETECTORS):
+                self.calib[i, 0].copy_(calib[d][0])
+                self.calib[i, 1].copy_(calib[d][1])
+        return fit
+
+    def _detect(self):
+        errs, _, Lcs, u = run_cdl_detect_llrs(
+            self.cfg, row_view(self.row), self.keys, self._calib())
+        for i, d in enumerate(CDL_DETECTORS):
+            self.dec_acc[0, i].add_(errs[d])
+            self.Lc[i].copy_(Lcs[d])
+        self.u.copy_(u)
+
+    def _decode(self):
+        dec = cdl_decode_counters(
+            self.cfg, {d: self.Lc[i] for i, d in enumerate(CDL_DETECTORS)},
+            self.u)
+        for j, f in enumerate(("info_errors", "frame_errors", "iter_sum",
+                               "unconv"), start=1):
+            for i, d in enumerate(CDL_DETECTORS):
+                self.dec_acc[j, i].add_(dec[f][d])
+
+    def cal_rounds(self, keys: torch.Tensor, clock=None):
+        """Calibration rounds of keys (Rc, G, 2): cal_acc and the pairs
+        stacked for the fit of Rc rounds (cal_acc is not zeroed)."""
+        Rc = keys.shape[0]
+        llr, bits = self.stack(Rc)
+        for r in range(Rc):
+            self.keys.copy_(keys[r])
+            self.body("cal").run()
+            llr[:, r].copy_(self.llr)
+            bits[r].copy_(self.bits)
+        if clock is not None:
+            clock.mark("cal")
+
+    def prepare_decode(self, keys: torch.Tensor):
+        """Capture the detect and decode bodies where not yet, warmed up on
+        the first round of keys (Rd, G, 2)."""
+        self.keys.copy_(keys[0])
+        self.body("detect")
+        self.body("decode")
+
+    def decode_rounds(self, keys: torch.Tensor, clock=None):
+        """Decode rounds of keys (Rd, G, 2) with the calibrators in calib,
+        adding into dec_acc (not zeroed)."""
+        for r in range(keys.shape[0]):
+            self.keys.copy_(keys[r])
+            self.body("detect").run()
+            if clock is not None:
+                clock.mark("detect")
+            self.body("decode").run()
+            if clock is not None:
+                clock.mark("decode")
+
+    def point(self, cal_keys: torch.Tensor, dec_keys: torch.Tensor,
+              clock=None):
+        """One SNR point at the Eb/N0 in row: Rc calibration rounds, the
+        fit, Rd decode rounds; the results in cal_acc, dec_acc and calib.
+        The bodies of a first call are captured before the run, so their
+        warm-up calls leave no trace in the results."""
+        Rc = cal_keys.shape[0]
+        self.keys.copy_(cal_keys[0])
+        self.body("cal")
+        self.body("fit", Rc)
+        self.prepare_decode(dec_keys)
+        self.cal_acc.zero_()
+        self.dec_acc.zero_()
+        self.cal_rounds(cal_keys, clock)
+        self.body("fit", Rc).run()
+        if clock is not None:
+            clock.mark("fit")
+        self.decode_rounds(dec_keys, clock)
+
+    def capture_stats(self):
+        """(the captures' host ms, bytes the pool grew by), summed."""
+        return (sum(b.capture_ms for b in self.bodies.values()),
+                sum(b.pool_bytes for b in self.bodies.values()))
+
+    def release(self):
+        for b in self.bodies.values():
+            b.release()
+        self.bodies.clear()

@@ -15,6 +15,12 @@ not depend on how the blocks are cut into rounds or ranks.
 
 The link budget (var_x, Pi, sqrt(Pi), A_clip, No/Pi) is evaluated in
 float32, as the JAX package evaluates it with a traced float32 Eb/N0.
+`synth_block` and `detect_data_symbols` read every scalar they derive from
+Eb/N0 from an `EbnoRow`: 0-d float32 tensors on the blocks' device (views
+of one small tensor), made on the host as `link_budget` makes its floats.
+Given a float they build the row themselves (`ebno_row`); given a row they
+read it where it lies, so a CUDA graph captured with a row buffer serves
+every Eb/N0 (parallel/montecarlo.py, the fused CDL route).
 
 Channels: exp_pdp (block fading), cdl_a/b/c and awgn_flat (the SISO-AWGN
 preset: one unit-magnitude tap of random phase, with its scalar LS estimate
@@ -43,6 +49,7 @@ from ..ops import (apply_fir_channel, awgn, bits_to_symbols,
 from ..ops.equalize import apply_equalizer, equalizer_weights
 from ..ops.pa import clip_amplitude, rapp_pa
 from ..utils import rng
+from ..utils.device import device_constant
 
 # purpose tags folded into block keys (the JAX package's values)
 _K_CHAN, _K_PBITS, _K_PNOISE, _K_ESNFIT = 1, 2, 3, 5
@@ -64,14 +71,80 @@ class LinkBudget(NamedTuple):
     a_clip: float
 
 
+class EbnoRow(NamedTuple):
+    """Every scalar a coherence block derives from its Eb/N0, each a 0-d
+    float32 tensor: var_x, Pi, sqrt(Pi), the Rapp clip A_clip, the matched
+    ESN's input scaling input_scaler / sqrt(var_x), the TD-MMSE scaler
+    (No/Pi)/(N/2) and the LMMSE load No/Pi. Each value is bit-identical to
+    the float `link_budget` and the block functions computed from it."""
+    var_x: torch.Tensor
+    pi: torch.Tensor
+    sqrt_pi: torch.Tensor
+    a_clip: torch.Tensor
+    input_scaling: torch.Tensor
+    mmse_scaler: torch.Tensor
+    no_over_pi: torch.Tensor
+
+
+def _row_values(noise_psd: float, n_subcarriers: int, clip_level_db: float,
+                input_scaler: float, ebnos: tuple) -> np.ndarray:
+    """The rows of the Eb/N0s `ebnos`, (len(ebnos), 7) float32, in numpy
+    float32 arithmetic."""
+    No, N = np.float32(noise_psd), np.float32(n_subcarriers)
+    rows = []
+    for ebno_db in ebnos:
+        var_x = (np.float32(10.0) ** (np.float32(ebno_db) / np.float32(10.0))
+                 * No * N)
+        pi = var_x / N
+        rows.append((var_x, pi, np.sqrt(pi),
+                     clip_amplitude(var_x, clip_level_db),
+                     np.float32(input_scaler) / np.sqrt(var_x),
+                     No / pi / np.float32(n_subcarriers / 2.0), No / pi))
+    return np.asarray(rows, dtype=np.float32)
+
+
+def ebno_rows(cfg: SimConfig, ebnos, device=None,
+              input_scaler: float | None = None) -> torch.Tensor:
+    """The rows of several Eb/N0s as one (len(ebnos), 7) float32 tensor on
+    `device`, in EbnoRow's field order, made once per device and kept
+    (utils/device.py:device_constant): a row a captured round reads is a
+    device-to-device copy from it. `input_scaler` replaces the config's
+    (synth_block's esn_over)."""
+    scaler = cfg.esn.input_scaler if input_scaler is None else input_scaler
+    return device_constant(
+        _row_values, float(cfg.ofdm.noise_psd), int(cfg.ofdm.n_subcarriers),
+        float(cfg.pa.clip_level_db), float(scaler),
+        tuple(float(e) for e in ebnos), device=device)
+
+
+def ebno_row(cfg: SimConfig, ebno_db: float, device=None,
+             input_scaler: float | None = None) -> EbnoRow:
+    """The row of one Eb/N0 on `device` (views of `ebno_rows`'s tensor)."""
+    return row_view(ebno_rows(cfg, (ebno_db,), device, input_scaler)[0])
+
+
+def row_view(values: torch.Tensor) -> EbnoRow:
+    """An EbnoRow of views of a (7,) float32 tensor."""
+    return EbnoRow(*values.unbind(0))
+
+
+def _as_row(cfg: SimConfig, ebno_db, device, input_scaler: float
+            ) -> EbnoRow:
+    """`ebno_db` as a row on `device`: a float's row, or the row given."""
+    if not isinstance(ebno_db, EbnoRow):
+        return ebno_row(cfg, ebno_db, device, input_scaler)
+    if float(input_scaler) != float(cfg.esn.input_scaler):
+        raise ValueError("an EbnoRow carries the config's ESN input scaling; "
+                         "pass the Eb/N0 as a float with an input_scaler "
+                         "override")
+    return ebno_db
+
+
 def link_budget(cfg: SimConfig, ebno_db: float) -> LinkBudget:
-    No = np.float32(cfg.ofdm.noise_psd)
-    N = np.float32(cfg.ofdm.n_subcarriers)
-    var_x = (np.float32(10.0) ** (np.float32(ebno_db) / np.float32(10.0))
-             * No * N)
-    pi = var_x / N
-    return LinkBudget(float(var_x), float(pi), float(np.sqrt(pi)),
-                      clip_amplitude(var_x, cfg.pa.clip_level_db))
+    var_x, pi, sqrt_pi, a_clip = _row_values(
+        cfg.ofdm.noise_psd, cfg.ofdm.n_subcarriers, cfg.pa.clip_level_db,
+        cfg.esn.input_scaler, (ebno_db,))[0, :4]
+    return LinkBudget(float(var_x), float(pi), float(sqrt_pi), float(a_clip))
 
 
 def fixed_link_budget(cfg: SimConfig) -> LinkBudget:
@@ -123,10 +196,11 @@ def _draw_taps(cfg: SimConfig, keys: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown channel kind {ch.kind}")
 
 
-def _tx_chain(cfg: SimConfig, X: torch.Tensor, lb: LinkBudget
+def _tx_chain(cfg: SimConfig, X: torch.Tensor, lb: LinkBudget | EbnoRow
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Frequency symbols (..., n_tx, N) -> (PA output, clean scaled TD
-    waveform), each (..., n_tx, N + cp)."""
+    waveform), each (..., n_tx, N + cp); `lb` a budget of floats or a
+    row."""
     x_clean = ofdm_modulate(X, cfg.ofdm.cp_len) * lb.sqrt_pi
     x_cp = (rapp_pa(x_clean, lb.a_clip, cfg.pa.smoothness)
             if cfg.pa.enabled else x_clean)
@@ -147,10 +221,12 @@ ESN_OVERRIDES = ("spectral_radius", "sparsity", "noise", "input_scaler",
                  "teacher_scaling")
 
 
-def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
-                esn_over: dict | None = None, return_pilot: bool = False):
+def synth_block(cfg: SimConfig, ebno_db: float | EbnoRow,
+                bkeys: torch.Tensor, esn_over: dict | None = None,
+                return_pilot: bool = False):
     """Channel draw, pilot synthesis, channel estimation and ESN training
-    for B blocks (reference OFDM_SISO_NBF_LDPC.py:270-384). bkeys (B, 2).
+    for B blocks (reference OFDM_SISO_NBF_LDPC.py:270-384). bkeys (B, 2);
+    ebno_db a float or its EbnoRow on the keys' device.
     With EsnConfig.train_ebno_fixed_db set, a second ESN is trained on the
     same pilot re-synthesised at that Eb/N0 (:347-357, detector
     "esn_fixed").
@@ -169,7 +245,12 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
     N, cp, isi = ofdm.n_subcarriers, ofdm.cp_len, ofdm.isi_duration
     n_tx, n_rx, mp = ch.n_tx, ch.n_rx, ofdm.bits_per_pilot_symbol
     T = N + cp
-    lb = link_budget(cfg, ebno_db)
+    ov = esn_over or {}
+    unknown = set(ov) - set(ESN_OVERRIDES)
+    if unknown:
+        raise ValueError(f"unknown ESN overrides {sorted(unknown)}")
+    hyper = {k: float(ov.get(k, getattr(esn_cfg, k))) for k in ESN_OVERRIDES}
+    lb = _as_row(cfg, ebno_db, bkeys.device, hyper["input_scaler"])
 
     chan_keys = rng.fold_in(bkeys, _K_CHAN)
     # block mode draws each block's taps alone: the TDL draw's matmul folds
@@ -202,16 +283,9 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
         H_ls = h[:, None, :, None].expand(H_true.shape).to(H_true.dtype)
         H_mmse = H_true
     else:
-        mmse_scaler = _f32(np.float32(ofdm.noise_psd) / np.float32(lb.pi)
-                           / np.float32(N / 2.0))
         H_ls, H_mmse = estimate_channel(Y_ls, X_ls, lb.sqrt_pi, n_tx, isi,
-                                        mmse_scaler)
+                                        lb.mmse_scaler)
 
-    ov = esn_over or {}
-    unknown = set(ov) - set(ESN_OVERRIDES)
-    if unknown:
-        raise ValueError(f"unknown ESN overrides {sorted(unknown)}")
-    hyper = {k: float(ov.get(k, getattr(esn_cfg, k))) for k in ESN_OVERRIDES}
     def draw(key):
         return init_reservoir(key, 2 * n_rx, 2 * n_tx, esn_cfg.n_reservoir,
                               hyper["spectral_radius"], hyper["sparsity"],
@@ -222,10 +296,9 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
            else draw(res_keys[0]))
     delay = esn_cfg.shared_delay(isi)
 
-    def fit(budget, y, x, tag, teacher_scaling):
+    def fit(input_scaling, y, x, tag, teacher_scaling):
         scale = EsnScale(
-            input_scaling=_f32(np.float32(hyper["input_scaler"])
-                               / np.sqrt(np.float32(budget.var_x))),
+            input_scaling=input_scaling,
             input_shift=_f32(esn_cfg.input_offset / esn_cfg.input_scaler),
             teacher_scaling=_f32(teacher_scaling))
         if per_block:
@@ -235,7 +308,7 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
         seed = key_seed_tensor(rng.fold_in(bkeys[0], tag))
         return scale, train_mimo_esn(res, scale, y, x, delay, cp, seed)
 
-    scale_m, Wt_out_m = fit(lb, y_cp, x_tgt, _K_ESNFIT,
+    scale_m, Wt_out_m = fit(lb.input_scaling, y_cp, x_tgt, _K_ESNFIT,
                             hyper["teacher_scaling"])
     scale_f = Wt_out_f = None
     if esn_cfg.train_ebno_fixed_db is not None:
@@ -245,7 +318,9 @@ def synth_block(cfg: SimConfig, ebno_db: float, bkeys: torch.Tensor,
         x_cp_f, x_clean_f = _tx_chain(cfg, X_p, lb_f)
         y_cp_f = apply_fir_channel(taps, x_cp_f) + awgn(
             rng.fold_in(bkeys, _K_PNOISE_F), (n_rx, T), ofdm.noise_psd, T)
-        scale_f, Wt_out_f = fit(lb_f, y_cp_f,
+        scale_f, Wt_out_f = fit(_f32(np.float32(hyper["input_scaler"])
+                                     / np.sqrt(np.float32(lb_f.var_x))),
+                                y_cp_f,
                                 _esn_target(cfg, x_cp_f, x_clean_f),
                                 _K_ESNFIT_F, esn_cfg.teacher_scaling)
     state = BlockState(taps=taps, H_true=H_true, H_ls=H_ls, H_mmse=H_mmse,
@@ -261,12 +336,14 @@ class DataSymbols(NamedTuple):
     X_hat: dict              # detector -> (B, D, N, n_tx)
 
 
-def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
+def detect_data_symbols(cfg: SimConfig, state: BlockState,
+                        ebno_db: float | EbnoRow,
                         bkeys: torch.Tensor, code_bits: torch.Tensor,
                         detectors: Tuple[str, ...] = DETECTORS,
                         return_td: bool = False):
     """D data symbols through TX -> channel -> detectors
-    (reference OFDM_SISO_NBF_LDPC.py:387-460). code_bits (B, D, n_tx, N*m).
+    (reference OFDM_SISO_NBF_LDPC.py:387-460). code_bits (B, D, n_tx, N*m);
+    ebno_db a float or its EbnoRow on the keys' device.
     The ESN detectors run the CUDA predict kernel (or its plain version on
     the CPU); "esn_fixed" only where the block state has a fixed-SNR
     readout.
@@ -283,7 +360,7 @@ def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
     n_tx, n_rx = cfg.channel.n_tx, cfg.channel.n_rx
     T = N + cp
     B, D = code_bits.shape[:2]
-    lb = link_budget(cfg, ebno_db)
+    lb = _as_row(cfg, ebno_db, bkeys.device, cfg.esn.input_scaler)
 
     X = bits_to_symbols(code_bits, m)                       # (B, D, n_tx, N)
     x_cp, x_clean = _tx_chain(cfg, X, lb)
@@ -324,8 +401,7 @@ def detect_data_symbols(cfg: SimConfig, state: BlockState, ebno_db: float,
     if "zf_ls" in detectors:
         X_hat["zf_ls"] = equalize(state.H_ls, _f32(1e-12))
     if "mmse" in detectors:
-        X_hat["mmse"] = equalize(
-            state.H_mmse, _f32(np.float32(ofdm.noise_psd) / np.float32(lb.pi)))
+        X_hat["mmse"] = equalize(state.H_mmse, lb.no_over_pi)
     data = DataSymbols(X_true=X.transpose(-1, -2), Y=Y, X_hat=X_hat)
     if return_td:
         return data, (y_cp, _esn_target(cfg, x_cp, x_clean))

@@ -14,7 +14,8 @@ esn_ofdm_mimo_tpu/utils/metrics.py).
     inside the context `check_finite` raises FloatingPointError at the
     first tensor holding a NaN or an infinity, outside it is free;
   * `PhaseClock` sums wall ms per named phase into a dict, synchronising
-    the card at each mark.
+    the card at each mark; `EventClock` sums the card's time between CUDA
+    events per phase, read once at the end (no sync inside a run).
 """
 from __future__ import annotations
 
@@ -46,6 +47,42 @@ class PhaseClock:
         t = self._now()
         self.out[name] = self.out.get(name, 0.0) + 1e3 * (t - self.t)
         self.t = t
+
+
+class EventClock:
+    """Time per phase, in ms, without syncing the host: on the card a CUDA
+    event recorded at each mark, read by `flush` (which waits for the last
+    one) once the caller has the results; on the CPU the wall time at each
+    mark. `flush` adds each phase's ms into `out`; with `out` None it
+    does nothing."""
+
+    def __init__(self, dev: torch.device, out):
+        self.dev, self.out, self.marks = dev, out, []
+        self.t0 = self._stamp() if out is not None else None
+
+    def _stamp(self):
+        if self.dev.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def mark(self, name: str):
+        if self.out is not None:
+            self.marks.append((name, self._stamp()))
+
+    def flush(self):
+        if self.out is None or not self.marks:
+            return
+        if self.dev.type == "cuda":
+            self.marks[-1][1].synchronize()
+        prev = self.t0
+        for name, t in self.marks:
+            ms = (prev.elapsed_time(t) if self.dev.type == "cuda"
+                  else 1e3 * (t - prev))
+            self.out[name] = self.out.get(name, 0.0) + ms
+            prev = t
+        self.marks, self.t0 = [], prev
 
 
 class MetricsLogger:
@@ -104,6 +141,11 @@ def debug_nan_checks(enabled: bool = True):
         yield
     finally:
         _nan_checks = prev
+
+
+def nan_checks_enabled() -> bool:
+    """Whether a `debug_nan_checks` context is active."""
+    return _nan_checks
 
 
 def check_finite(what: str, *tensors: torch.Tensor) -> None:
