@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's six CUDA kernels from esn_ofdm_mimo_tpu_torch/csrc/ (one
+Builds the port's seven CUDA kernels from esn_ofdm_mimo_tpu_torch/csrc/ (one
 nvcc per source, all started together; sm_90a), then:
 
   1. prints the card (nvidia-smi name and power limit) and the build time;
@@ -85,6 +85,14 @@ nvcc per source, all started together; sm_90a), then:
      micro-benchmark's shape (9,472 rows, one readout per row), then the
      micro-benchmark itself (tools/bench_micro_torch.py, group pred), one
      line per variant;
+     [svd 8x4], [svd 2x2] the small-SVD kernel (csrc/svdvals_small.cu, a
+     port kernel: the JAX package's svdvals_small is plain jnp) against its
+     plain version and the library SVD (torch.linalg.svdvals, the
+     yardstick) on the channels of one full-width round, 128 blocks of
+     mimo_4x8_nbf (65,536 matrices of 8 x 4) and of mimo_2x2_nbf: each
+     singular value within 1e-5 relative of plain, ranks and condition
+     histogram equal to plain's, capacity within rtol 1e-5 of the
+     library's; ms, plain ms, library ms, bound;
   6. small reference checks: tiny CDL and tiny NBF configurations through
      `cdl_snr_point` / `nbf_snr_point` on the GPU (kernels) and on the CPU
      (plain versions), classical-detector counters within a few bit flips;
@@ -92,7 +100,10 @@ nvcc per source, all started together; sm_90a), then:
      reset just before and read just after:
        [nbf main] `nbf_snr_point` on mimo_4x8_nbf (N = 512, 4x8, n_res = 600,
        T = 522, D = 18, n = 2048), 128 blocks, one round at 3 dB (doubled
-       BP cap) and at 12 dB, five detectors: K1, K2 and K3 launched;
+       BP cap) and at 12 dB, five detectors: K1, K2, K3 and the SVD kernel
+       launched; the 12 dB analytics equal the SVD kernel's on [svd 8x4]'s
+       H, printed beside the library SVD's (full rank, histogram L1,
+       capacity);
        [nbf uncoded] the 12 dB point with ldpc.enabled=False on the same
        keys: no BP launched, no decode phase, the coded counters empty,
        every uncoded BER within 10% of the coded run's;
@@ -142,6 +153,20 @@ nvcc per source, all started together; sm_90a), then:
        [cdl grid] make_fused_cdl_grid at 9, 12 and 15 dB, 128 blocks, 1 +
        1 rounds: identical to the per-SNR loops of the fused step and of
        the eager cdl_snr_point, the wall of each, launches from a trace;
+       [nbf step] the fused NBF route, parallel/montecarlo.py:
+       make_sharded_nbf_scan_step, on mimo_4x8_nbf at full width, 128
+       blocks x 2 rounds at 12 dB: the first call captures the round's
+       body (BP cap 100), 3 replayed calls on new keys; every counter
+       identical to the eager nbf_snr_point on the same keys, capacity_sum
+       included; a replayed call traced (K1 2, K2 4, K3 4, the SVD kernel
+       2 by kernel name; none from Python) and one under
+       set_sync_debug_mode("error"); a call at 3 dB (the body of cap 200)
+       identical to eager; capture ms, pool MiB, the best replayed wall
+       against the eager one, detected symbols/s; [nbf grid]
+       make_fused_nbf_grid at 3 and 12 dB, 128 blocks x 1 round, identical
+       to the per-SNR loops of the scan step and of nbf_snr_point; [nbf
+       step block] the scan step in rng_mode="block", 2 blocks x 1 round
+       at 12 dB, identical to the eager point;
        [curve] the CLI, esn_ofdm_mimo_tpu_torch.experiments.run.main, on
        mimo_4x8_cdl at 9, 12 and 15 dB, 256 blocks per SNR in rounds of 128
        with the adaptive top-up: without a checkpoint it takes the grid
@@ -157,8 +182,11 @@ nvcc per source, all started together; sm_90a), then:
        max_iter=50): the layered kernel launched and the flooding one not,
        MMSE coded BER in the flooding run's band, decode ms of both (the
        card's time between CUDA events);
-       [curve nbf] the CLI on mimo_4x8_nbf at 3 and 12 dB, 128 blocks:
-       artifacts written, BERs equal to `nbf_snr_point` on the same keys;
+       [curve nbf] the CLI on mimo_4x8_nbf at 3 and 12 dB, 128 blocks, on
+       the grid route (recorded; graphs released first): artifacts
+       written, BERs equal to `nbf_snr_point` on the same keys; with
+       --resume (the scan step) and --debug-nans (the eager route) the
+       same CSV;
        [curve nbf qam6] the same with --qam-bits 6 at 12 dB: K1 at n =
        3,072 (Z = 384), the CSV equal to `nbf_snr_point` on the same keys;
        [curve siso] the CLI on siso_qpsk_awgn at full width (N = 512,
@@ -214,9 +242,12 @@ nvcc per source, all started together; sm_90a), then:
        [dist nccl] a torch.distributed process group of world size 1 on
        NCCL from the variables torchrun sets (maybe_init_distributed):
        run_nbf_curve (mimo_4x8_nbf, 8 blocks) and run_cdl_curve
-       (mimo_4x8_cdl, 16 blocks; the fused route, as at one rank) over it
-       identical to the same calls without a group, sharded_fir at one rank within 1e-6 of the FIR,
-       the group destroyed afterwards; [scaling] the scaling CLI
+       (mimo_4x8_cdl, 16 blocks; both fused, as at one rank) over it
+       identical to the same calls without a group; the eager
+       nbf_snr_point (8 blocks, 12 dB) over it, its counters summed by an
+       NCCL all_reduce, identical to the point without a group;
+       sharded_fir at one rank within 1e-6 of the FIR, the group destroyed
+       afterwards; [scaling] the scaling CLI
        (experiments/scaling.py --fast) at one NCCL rank, its --out read
        (one card: no scaling efficiency).
      No QC path may reach the graph decoder (its count stays 0);
@@ -226,15 +257,16 @@ nvcc per source, all started together; sm_90a), then:
      against the plain version, times, bound: the largest of bytes over the
      memory rate, fp32 operations over the fp32 peak and transcendentals
      over the special-function unit's rate; library_ms the cuDNN RNN's for
-     K3, null for the others), then the card line and the
+     K3, torch.linalg.svdvals's for the SVD kernel, null for the others),
+     then the card line and the
      final {"ok": true, ...} line.
 
 Every phase ends in torch.cuda.synchronize(); any failure exits non-zero
 before the final line. Without CUDA it exits 1 and prints no result.
 
 --profile adds one more run of the flagship and the 12 dB NBF main paths,
-of [cal chunks]'s 16 replays and of one replayed [cdl snr step] call under
-torch.profiler and prints the device time by kernel and the device's busy
+of [cal chunks]'s 16 replays and of one replayed [cdl snr step] and [nbf
+step] call under torch.profiler and prints the device time by kernel and the device's busy
 share of each run's wall time.
 """
 from __future__ import annotations
@@ -312,6 +344,7 @@ def main() -> None:
         make_code
     from esn_ofdm_mimo_tpu_torch.ldpc.decode import ldpc_decode_bp_plain
     from esn_ofdm_mimo_tpu_torch.models import esn_cuda, esn_states_cuda
+    from esn_ofdm_mimo_tpu_torch.ops import analytics
     from esn_ofdm_mimo_tpu_torch.models.esn import (EsnScale, esn_fit,
                                                     esn_predict, esn_states,
                                                     init_reservoir,
@@ -343,6 +376,7 @@ def main() -> None:
                 (esn_states_cuda, "launches", "esn_states"),
                 (esn_cuda, "launches_grouped", "esn_predict_grouped"),
                 (esn_cuda, "launches_ablate", "esn_predict_ablate"),
+                (analytics, "launches", "svdvals_small"),
                 # not a kernel: the plain BP of Gallager and pyldpc codes
                 (bp_graph, "graph_decodes", "graph_decode"))
 
@@ -1242,6 +1276,104 @@ def main() -> None:
         "tools/bench_micro.py:147", k5_err, *k5["full"][1:])
     del x5, W5, out_k, out_p
 
+    # ---- [svd]: the small-SVD kernel (csrc/svdvals_small.cu) -------------
+    # against its plain version and the library SVD (torch.linalg.svdvals,
+    # the yardstick; the port never calls it) on the channels of one
+    # full-width round: [nbf main]'s 128 blocks at 12 dB (65,536 matrices
+    # of 8 x 4) and a mimo_2x2_nbf round (65,536 of 2 x 2). Gates: each
+    # singular value within 1e-5 relative of the plain version's, the
+    # analytics' ranks and condition histogram equal to the plain
+    # version's, the capacity within rtol 1e-5 of the library's
+    from esn_ofdm_mimo_tpu_torch.ops import taps_to_freq_response
+    from esn_ofdm_mimo_tpu_torch.pipelines.blockfading import cond_histogram
+    from esn_ofdm_mimo_tpu_torch.pipelines.common import (_K_CHAN,
+                                                          _draw_taps,
+                                                          ebno_row)
+
+    def channel_of(c, bkeys):
+        """H_true of the blocks of bkeys (synth_block's channel draw)."""
+        taps = _draw_taps(c, rng.fold_in(bkeys, _K_CHAN))
+        return taps_to_freq_response(taps, c.ofdm.n_subcarriers)
+
+    def metrics_with(svd, H, c, e):
+        """channel_svd_metrics of H at Eb/N0 e with `svd` in place of
+        svdvals_small."""
+        saved = analytics.svdvals_small
+        analytics.svdvals_small = svd
+        try:
+            return analytics.channel_svd_metrics(
+                H, ebno_row(c, e, dev).pi, c.ofdm.noise_psd)
+        finally:
+            analytics.svdvals_small = saved
+
+    def svd_work(H):
+        """(bytes, fp32 operations, transcendentals) that svdvals_small on
+        H needs: H read once, S written once; the Gram's n (n + 1) / 2
+        distinct entries (it is symmetric; 2 n_r products and sums each,
+        n = 2 n_t); for each rotation 12 operations for its angle, 6 for
+        each of the n - 2 entries of its two rows outside the (p, q)
+        block (the columns mirror them) and 24 for the 2 x 2 block, rows
+        and columns; 5 square roots and divisions a rotation."""
+        n_r, n_t = H.shape[-2:]
+        b, n = H.numel() // (n_r * n_t), 2 * n_t
+        rot = analytics.SWEEPS * n * (n - 1) // 2
+        return (8 * H.numel() + 4 * b * n_t,
+                b * (2 * n_r * n * (n + 1) + rot * (6 * n + 24)),
+                5 * b * rot)
+
+    svd_metrics = {}
+    for c_s, what in ((nbf, "8x4"), (mimo_2x2_nbf(), "2x2")):
+        H_s = channel_of(c_s, rng.block_keys(
+            rng.prng_key(0), c_s.ebno_db.index(12.0),
+            torch.arange(128)).to(dev))
+        S_k = analytics.svdvals_small(H_s)
+        S_p = analytics.svdvals_small_plain(H_s)
+        S_l = torch.linalg.svdvals(H_s)
+        sync()
+        rel = float(((S_k - S_p).abs() / S_p.abs().clamp_min(1e-30)).max())
+        _check(S_k.shape == S_p.shape and bool(torch.isfinite(S_k).all())
+               and rel <= 1e-5,
+               f"svd {what}: the kernel's singular values differ from the "
+               f"plain version's (max relative error {rel})")
+        m_k = analytics.channel_svd_metrics(
+            H_s, ebno_row(c_s, 12.0, dev).pi, c_s.ofdm.noise_psd)
+        m_p = metrics_with(analytics.svdvals_small_plain, H_s, c_s, 12.0)
+        m_l = metrics_with(torch.linalg.svdvals, H_s, c_s, 12.0)
+        hist_k, hist_l = cond_histogram(m_k.cond), cond_histogram(m_l.cond)
+        _check(torch.equal(m_k.rank, m_p.rank)
+               and torch.equal(hist_k, cond_histogram(m_p.cond)),
+               f"svd {what}: ranks or condition histogram differ from the "
+               f"plain version's")
+        cap_rel = float(((m_k.capacity_per_sc - m_l.capacity_per_sc).abs()
+                         / m_l.capacity_per_sc).max())
+        _check(cap_rel <= 1e-5, f"svd {what}: capacity {cap_rel} relative "
+                                f"from the library SVD's")
+        ms = cuda_ms(lambda: analytics.svdvals_small(H_s), 20)
+        plain_ms = cuda_ms(lambda: analytics.svdvals_small_plain(H_s), 2)
+        lib_ms = cuda_ms(lambda: torch.linalg.svdvals(H_s), 5)
+        b_ms, b_by = _bound(*svd_work(H_s))
+        full = min(c_s.channel.n_tx, c_s.channel.n_rx)
+        svd_metrics[what] = (m_k, m_l)
+        _log(f"[svd {what}] {tuple(H_s.shape)} complex64: kernel against "
+             f"plain max relative error {rel:.3e} (identical: "
+             f"{torch.equal(S_k, S_p)}), against the library "
+             f"{float(((S_k - S_l).abs() / S_l.abs()).max()):.3e} | ranks "
+             f"and condition histogram equal to plain; full rank kernel "
+             f"{int((m_k.rank >= full).sum())} library "
+             f"{int((m_l.rank >= full).sum())}, histogram L1 to the library "
+             f"{int((hist_k - hist_l).abs().sum())}, capacity relative "
+             f"{cap_rel:.3e} | kernel {ms:.4f} ms plain {plain_ms:.3f} ms "
+             f"library {lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}) | {smi}")
+        if what == "8x4":
+            kernels["svdvals_small"] = _entry(
+                "svdvals_small", "svdvals_small.cu",
+                "esn_ofdm_mimo_tpu/ops/linalg_mxu.py:207 (svdvals_small, "
+                "plain jnp: no pl.pallas_call)",
+                float((S_k - S_p).abs().max()), ms, plain_ms,
+                *svd_work(H_s))
+            kernels["svdvals_small"]["library_ms"] = lib_ms
+        del H_s, S_k, S_p, S_l
+
     # ---- 6. small reference checks: GPU kernels vs CPU plain versions ------
     root = rng.prng_key(0)
     tiny = tc.SimConfig(
@@ -1334,7 +1466,8 @@ def main() -> None:
         pt_n, ph_n, wall_n, la_n = count_run(
             lambda ph: nbf_snr_point(nbf, ebno_n, nbf_keys[ebno_n],
                                      timings=ph),
-            ("bp_decode", "esn_predict", "esn_states"), f"nbf {ebno_n} dB")
+            ("bp_decode", "esn_predict", "esn_states", "svdvals_small"),
+            f"nbf {ebno_n} dB")
         nbf_wall[ebno_n], nbf_pts[ebno_n] = wall_n, pt_n
         ber = {d: v / pt_n.total_bits for d, v in pt_n.bit_errors.items()}
         coded = {d: v / pt_n.total_info_bits
@@ -1369,6 +1502,25 @@ def main() -> None:
         if ebno_n == 12.0:
             _check(coded["mmse"] <= ber["mmse"],
                    "NBF MMSE coded BER above its uncoded BER at 12 dB")
+            # the point's analytics are the SVD kernel's on its channels
+            # ([svd 8x4]'s H); beside them the library SVD's on the same H
+            m_k, m_l = svd_metrics["8x4"]
+            full_n = min(nbf.channel.n_tx, nbf.channel.n_rx)
+            hist_k = cond_histogram(m_k.cond)
+            _check(pt_n.rank_full_sum == int((m_k.rank >= full_n).sum())
+                   and pt_n.cond_hist.tolist() == hist_k.tolist()
+                   and pt_n.capacity_sum
+                   == float(m_k.capacity_per_sc.double().sum()),
+                   "nbf main: the point's analytics are not the SVD "
+                   "kernel's on its channels")
+            cap_l = float(m_l.capacity_per_sc.double().sum())
+            _log(f"[nbf main] analytics (the SVD kernel) beside the library "
+                 f"SVD's on the same H: full rank {pt_n.rank_full_sum} / "
+                 f"{int((m_l.rank >= full_n).sum())}, condition histogram "
+                 f"L1 difference "
+                 f"{int((hist_k - cond_histogram(m_l.cond)).abs().sum())}, "
+                 f"capacity relative difference "
+                 f"{abs(pt_n.capacity_sum - cap_l) / cap_l:.3e}")
 
     # uncoded block fading: the same 12 dB keys with ldpc.enabled=False,
     # so the data symbols carry raw bits; no BP of any kind runs
@@ -1584,6 +1736,7 @@ def main() -> None:
     # run_cdl_cal_blocks calls on those keys (identical counters) and the
     # eager loop of the counters-only body (the same work as a replay)
     from esn_ofdm_mimo_tpu_torch.pipelines import cdl as cdl_pipe
+    from esn_ofdm_mimo_tpu_torch.pipelines import graphs
     from esn_ofdm_mimo_tpu_torch.utils.flops import cdl_flops
 
     def cal_chunks(c, what: str, R_c: int, B_c: int, per_chunk: int):
@@ -1692,7 +1845,7 @@ def main() -> None:
     step = tmc.make_fused_cdl_snr_step(cfg)
     wall_first = wall_s(lambda: tmc._host_point(step(ebno, *keys_s[0])))
     cap_ms, pool_b = tmc._rounds(cfg, G_main, dev).capture_stats()
-    pool_all = cdl_pipe.graph_pool_bytes(dev)
+    pool_all = graphs.graph_pool_bytes(dev)
     pts_s, walls_s = [], []
     for i in (1, 2, 3):
         walls_s.append(wall_s(lambda i=i: pts_s.append(
@@ -1777,6 +1930,135 @@ def main() -> None:
          f"round captured: {1e3 * wall_g1:.3f}), step loop "
          f"{1e3 * wall_f3:.3f}, eager loop {1e3 * wall_e3:.3f} | {smi}")
 
+    # ---- the fused NBF route: the scan step, then the SNR grid -----------
+    # [nbf step]: make_sharded_nbf_scan_step on mimo_4x8_nbf at full width,
+    # 128 blocks x 2 rounds at 12 dB (keys block_keys(root, snr index,
+    # ids): call i takes ids [256 i, 256 (i + 1))). The first call captures
+    # the round's body of BP cap 100; 3 replayed calls on new keys (best
+    # wall), the eager nbf_snr_point on call 1's keys (every counter
+    # identical, capacity_sum included), one replayed call traced (K1 once,
+    # K2 and K3 twice, the SVD kernel once a round; nothing launched from
+    # Python) and one under set_sync_debug_mode("error"); then a call at 3
+    # dB, which captures the body of the doubled cap, against the eager
+    # point
+    R_n = 2
+
+    def nbf_step_keys(e, i):
+        ids = torch.arange(i * R_n * G_nbf, (i + 1) * R_n * G_nbf)
+        return rng.block_keys(root, nbf.ebno_db.index(e), ids).reshape(
+            R_n, G_nbf, 2).to(dev)
+
+    keys_n = [nbf_step_keys(12.0, i) for i in range(4)]
+    nstep = tmc.make_sharded_nbf_scan_step(nbf)
+    wall_nfirst = wall_s(lambda: tmc._host_nbf(nstep(12.0, keys_n[0])))
+    pts_n, walls_n = [], []
+    for i in (1, 2, 3):
+        walls_n.append(wall_s(lambda i=i: pts_n.append(
+            tmc._host_nbf(nstep(12.0, keys_n[i])))))
+    eager_n = []
+    wall_eager_n = wall_s(lambda: eager_n.append(
+        nbf_snr_point(nbf, 12.0, keys_n[1])))
+    _check(same(pts_n[0], eager_n[0]),
+           f"nbf step: the fused point differs from the eager one: "
+           f"{pts_n[0]} against {eager_n[0]}")
+    pt_tn, _, _, la_n = count_run(
+        lambda ph: tmc._host_nbf(nstep(12.0, keys_n[1])), (), "nbf step",
+        traced=True)
+    la_npy = read_counts()
+    fits_n = 1 + (nbf.esn.train_ebno_fixed_db is not None)
+    _check(not any(la_npy.values()),
+           f"nbf step: a replayed call launched from Python: {la_npy}")
+    _check(la_n["bp_decode"] == R_n and la_n["esn_predict"] == fits_n * R_n
+           and la_n["esn_states"] == fits_n * R_n
+           and la_n["svdvals_small"] == R_n and same(pt_tn, pts_n[0]),
+           f"nbf step: traced launches {la_n}, expected K1 {R_n}, K2 and K3 "
+           f"{fits_n * R_n}, the SVD kernel {R_n}, or another point")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pt_sn = nstep(12.0, keys_n[2])
+    except RuntimeError as e:
+        _fail(f"nbf step: a replayed call synchronizes the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _check(same(tmc._host_nbf(pt_sn), pts_n[1]),
+           "nbf step: the call under sync debug mode gave another point")
+    keys_n3 = nbf_step_keys(3.0, 0)
+    wall_n3first = wall_s(lambda: tmc._host_nbf(nstep(3.0, keys_n3)))
+    pt_n3, eager_n3 = [], []
+    wall_n3 = wall_s(lambda: pt_n3.append(tmc._host_nbf(nstep(3.0, keys_n3))))
+    wall_e3n = wall_s(lambda: eager_n3.append(
+        nbf_snr_point(nbf, 3.0, keys_n3)))
+    _check(same(pt_n3[0], eager_n3[0]),
+           f"nbf step 3 dB: the fused point differs from the eager one: "
+           f"{pt_n3[0]} against {eager_n3[0]}")
+    cap_n, pool_nb = tmc._nbf_rounds(nbf, G_nbf, dev).capture_stats()
+    best_n = min(walls_n)
+    syms_n = R_n * G_nbf * (D_n + 1)
+    _log(f"[nbf step] mimo_4x8_nbf 12 dB, {G_nbf} blocks x {R_n} rounds: "
+         f"every counter identical to the eager nbf_snr_point on the same "
+         f"keys (info errors {pts_n[0].info_errors}, frame errors "
+         f"{pts_n[0].frame_errors} of {pts_n[0].ldpc_codewords}, capacity "
+         f"sum {pts_n[0].capacity_sum!r}); a replayed call syncs nowhere "
+         f"(sync debug mode) | capture {cap_n:.1f} ms (the bodies of caps "
+         f"{nbf.ldpc.max_iter} and {2 * nbf.ldpc.max_iter}), they grew the "
+         f"graph pool by {pool_nb / 2**20:.1f} MiB to "
+         f"{graphs.graph_pool_bytes(dev) / 2**20:.1f} MiB, first call "
+         f"{1e3 * wall_nfirst:.1f} ms | {smi}")
+    _log(f"[nbf step] wall ms: replayed "
+         f"{[round(1e3 * w, 3) for w in walls_n]} (best {1e3 * best_n:.3f}),"
+         f" eager nbf_snr_point {1e3 * wall_eager_n:.3f}, eager / replayed "
+         f"{wall_eager_n / best_n:.3f} | detected symbols/s ({R_n} x "
+         f"{G_nbf} x {D_n + 1} / wall): replayed {syms_n / best_n:.1f}, "
+         f"eager {syms_n / wall_eager_n:.1f} | 3 dB (cap "
+         f"{2 * nbf.ldpc.max_iter}): identical to eager, replayed "
+         f"{1e3 * wall_n3:.3f} (first call, its capture: "
+         f"{1e3 * wall_n3first:.3f}), eager {1e3 * wall_e3n:.3f} | launches "
+         f"in the trace of one replayed call {la_n} | {smi}")
+
+    # [nbf grid]: make_fused_nbf_grid at 3 and 12 dB, 128 blocks x 1 round,
+    # against the per-SNR loops of the scan step and of the eager
+    # nbf_snr_point on the same keys: identical; the wall of each
+    c_n2 = dataclasses.replace(nbf, ebno_db=(3.0, 12.0))
+    grid_n = tmc.make_fused_nbf_grid(c_n2, G_nbf, 1)
+    keys_g = [rng.block_keys(root, jj, torch.arange(G_nbf)).reshape(
+        1, G_nbf, 2).to(dev) for jj in range(2)]
+    got_gn, loop_fn, loop_en = [], [], []
+    wall_gn = wall_s(lambda: got_gn.extend(grid_n(root)))
+    wall_fn = wall_s(lambda: loop_fn.extend(
+        tmc._host_nbf(nstep(e, k)) for e, k in zip(c_n2.ebno_db, keys_g)))
+    wall_en = wall_s(lambda: loop_en.extend(
+        nbf_snr_point(c_n2, e, k) for e, k in zip(c_n2.ebno_db, keys_g)))
+    _check(all(same(a, b) for x in (loop_fn, loop_en)
+               for a, b in zip(got_gn, x)),
+           "nbf grid: the grid differs from the per-SNR loops")
+    _log(f"[nbf grid] mimo_4x8_nbf 3/12 dB, {G_nbf} blocks x 1 round: "
+         f"identical to the per-SNR loops of the scan step and of the eager "
+         f"nbf_snr_point | MMSE coded BER "
+         f"{[p.info_errors['mmse'] / p.total_info_bits for p in got_gn]} | "
+         f"wall ms: grid {1e3 * wall_gn:.3f}, step loop {1e3 * wall_fn:.3f},"
+         f" eager loop {1e3 * wall_en:.3f} | {smi}")
+
+    # [nbf step block]: the scan step in EsnConfig(rng_mode="block") on
+    # mimo_4x8_nbf at full width, 2 blocks x 1 round at 12 dB (one
+    # reservoir, K3 and K2 a block, captured in the graph), against the
+    # eager nbf_snr_point on the same keys: identical
+    nbf_b = dataclasses.replace(nbf, esn=dataclasses.replace(
+        nbf.esn, rng_mode="block"))
+    bstep = tmc.make_sharded_nbf_scan_step(nbf_b)
+    keys_b = keys_n[0][:1, :2]
+    wall_b1 = wall_s(lambda: bstep(12.0, keys_b))
+    pt_b, eager_b = [], []
+    wall_b = wall_s(lambda: pt_b.append(tmc._host_nbf(bstep(12.0, keys_b))))
+    wall_be = wall_s(lambda: eager_b.append(
+        nbf_snr_point(nbf_b, 12.0, keys_b)))
+    _check(same(pt_b[0], eager_b[0]),
+           f"nbf step block: the fused point differs from the eager one: "
+           f"{pt_b[0]} against {eager_b[0]}")
+    _log(f"[nbf step block] mimo_4x8_nbf rng_mode=block, 2 blocks x 1 "
+         f"round at 12 dB: identical to the eager nbf_snr_point | wall ms: "
+         f"replayed {1e3 * wall_b:.3f}, eager {1e3 * wall_be:.3f}, first "
+         f"call (its capture) {1e3 * wall_b1:.3f}")
+
     # the micro-benchmark's predict group: the path that launches K5
     _, _, _, la_5 = count_run(
         lambda ph: micro.run_pred_variants(G_main, dev, rounds=4),
@@ -1791,11 +2073,11 @@ def main() -> None:
         return rows[0], [[float(x) for x in r] for r in rows[1:]]
 
     @contextlib.contextmanager
-    def routes_taken(log: list):
-        """Record which CDL route run_cdl_curve takes: the grid, the
-        per-SNR step or the eager point."""
-        names = ("make_fused_cdl_grid", "make_fused_cdl_snr_step",
-                 "cdl_snr_point")
+    def routes_taken(log: list, names=("make_fused_cdl_grid",
+                                       "make_fused_cdl_snr_step",
+                                       "cdl_snr_point")):
+        """Record which route a curve takes: by default run_cdl_curve's
+        grid, per-SNR step or eager point."""
         saved = {n: getattr(tmc, n) for n in names}
         for n, f in saved.items():
             setattr(tmc, n, lambda *a, _n=n, _f=f, **k:
@@ -1819,7 +2101,7 @@ def main() -> None:
                   "--adaptive-min-errors", "2000", "--adaptive-max-blocks",
                   "256"]
         route_g = []
-        cdl_pipe.release_graphs()
+        graphs.release_graphs()
         with routes_taken(route_g):
             _, _, wall_c, la_c = count_run(
                 lambda ph: cli.main(argv_c + ["--outdir", out_c]),
@@ -1903,7 +2185,7 @@ def main() -> None:
         for name, c_s, need, absent in (
                 ("flooding", cfg_c, "bp_decode", "bp_decode_layered"),
                 ("layered", cfg_l, "bp_decode_layered", "bp_decode")):
-            cdl_pipe.release_graphs()     # captured in the run, as above
+            graphs.release_graphs()     # captured in the run, as above
             res_s, ph_s, wall_sc, la_sc = count_run(
                 lambda ph: run_cdl_curve(c_s, 256, blocks_per_round=128,
                                          progress=None, timings=ph),
@@ -1934,14 +2216,23 @@ def main() -> None:
              f"100) {dec_f:.3f}, layered (max_iter 50) {dec_l:.3f}, ratio "
              f"{dec_l / dec_f:.3f}")
 
-        # the block-fading curve: the CLI on mimo_4x8_nbf at 3 and 12 dB
+        # the block-fading curve: the CLI on mimo_4x8_nbf at 3 and 12 dB,
+        # the grid route (its graphs released first, so that the CLI
+        # captures them as a new process would)
         out_n = os.path.join(tmp, "nbf")
-        _, _, wall_cn, la_cn = count_run(
-            lambda ph: cli.main(
-                ["--preset", "mimo_4x8_nbf", "--ebno-list", "3,12",
-                 "--blocks-per-device", "128", "--blocks-per-snr", "128",
-                 "--outdir", out_n]),
-            ("bp_decode", "esn_predict", "esn_states"), "curve nbf")
+        argv_n = ["--preset", "mimo_4x8_nbf", "--ebno-list", "3,12",
+                  "--blocks-per-device", "128", "--blocks-per-snr", "128"]
+        nbf_routes = ("make_fused_nbf_grid", "make_sharded_nbf_scan_step",
+                      "nbf_snr_point")
+        route_n = []
+        graphs.release_graphs()
+        with routes_taken(route_n, nbf_routes):
+            _, _, wall_cn, la_cn = count_run(
+                lambda ph: cli.main(argv_n + ["--outdir", out_n]),
+                ("bp_decode", "esn_predict", "esn_states", "svdvals_small"),
+                "curve nbf")
+        _check(route_n == ["make_fused_nbf_grid"],
+               f"curve nbf: the CLI without a checkpoint took {route_n}")
         head_n, rows_n = read_csv(os.path.join(out_n, "results_ber.csv"))
         with open(os.path.join(out_n, "channel_metrics_4x8.pkl"), "rb") as f:
             met = pickle.load(f)
@@ -1970,10 +2261,31 @@ def main() -> None:
                        f"curve nbf {ebno_c} dB {d}: CSV "
                        f"{row[1 + i], row[1 + len(dets) + i]} against "
                        f"nbf_snr_point's {want_u, want_c}")
-        _log(f"[curve nbf] CLI mimo_4x8_nbf 3/12 dB, 128 blocks: "
-             f"results_ber.csv and channel_metrics_4x8.pkl written, BERs "
-             f"equal to nbf_snr_point on the same keys | wall "
-             f"{1e3 * wall_cn:.1f} ms | launches {la_cn}")
+        _log(f"[curve nbf] CLI mimo_4x8_nbf 3/12 dB, 128 blocks, the grid "
+             f"route: results_ber.csv and channel_metrics_4x8.pkl written, "
+             f"BERs equal to nbf_snr_point on the same keys | wall "
+             f"{1e3 * wall_cn:.1f} ms (its graphs captured) | launches from "
+             f"Python (warm-ups and captures) {la_cn}")
+        # the scan step a call (--resume: checkpoints) and the eager route
+        # (--debug-nans) on the same keys: the grid's CSV
+        csv_n = open(os.path.join(out_n, "results_ber.csv"), "rb").read()
+        walls_rn = {}
+        for tag, extra in (("step", ["--resume"]), ("eager", ["--debug-nans"])):
+            out_r, route_r = os.path.join(tmp, f"nbf_{tag}"), []
+            with routes_taken(route_r, nbf_routes):
+                walls_rn[tag] = wall_s(lambda: cli.main(
+                    argv_n + ["--outdir", out_r] + extra))
+            _check(set(route_r) == {"make_sharded_nbf_scan_step"}
+                   if tag == "step" else "nbf_snr_point" in route_r,
+                   f"curve nbf: the {tag} route took {route_r}")
+            _check(open(os.path.join(out_r, "results_ber.csv"), "rb").read()
+                   == csv_n,
+                   f"curve nbf: the {tag} route wrote another CSV than the "
+                   f"grid")
+        _log(f"[curve nbf] the scan step (--resume, checkpoints) and the "
+             f"eager route (--debug-nans) on the same keys: the grid's CSV | "
+             f"wall ms step {1e3 * walls_rn['step']:.1f}, eager "
+             f"{1e3 * walls_rn['eager']:.1f}")
 
         # 64-QAM on the block-fading preset: n = 512 x 6 = 3,072, Z = 384
         out_q = os.path.join(tmp, "nbf_qam6")
@@ -2450,10 +2762,10 @@ def main() -> None:
         # ---- torch.distributed at one NCCL rank ------------------------------
         # [dist nccl]: a process group of world size 1 from the variables
         # torchrun sets, through maybe_init_distributed(); the curves over
-        # its one rank (the NBF counters through all_reduce; the CDL curve
-        # takes the fused route, eager only over several ranks) against
-        # the same calls without a group, bit for bit; sharded_fir at one rank against the FIR; the group is
-        # destroyed afterwards
+        # its one rank (both take their fused routes, eager only over
+        # several ranks) and the eager NBF point over it against the same
+        # calls without a group, bit for bit; sharded_fir at one rank
+        # against the FIR; the group is destroyed afterwards
         import socket
 
         import torch.distributed as dist
@@ -2482,15 +2794,22 @@ def main() -> None:
             c_n = dataclasses.replace(nbf, ebno_db=(12.0,))
             c_c = dataclasses.replace(cfg, ebno_db=(12.0,))
             curves = {}
-            for tag, m in (("group", mesh), ("none", None)):
-                curves[tag], _, wall_d, la_d = count_run(
-                    lambda ph, m=m: (
-                        run_nbf_curve(c_n, 8, blocks_per_round=8,
+
+            def both_curves(m):
+                # both curves take their fused routes at one rank: their
+                # graphs are released first, so that each run captures
+                # (and launches from Python) as a new process would
+                graphs.release_graphs()
+                return (run_nbf_curve(c_n, 8, blocks_per_round=8,
                                       progress=None, mesh=m),
                         run_cdl_curve(c_c, 16, blocks_per_round=8,
-                                      progress=None, mesh=m)),
-                    ("bp_decode", "esn_predict", "esn_states"),
-                    f"dist nccl {tag}")
+                                      progress=None, mesh=m))
+
+            for tag, m in (("group", mesh), ("none", None)):
+                curves[tag], _, wall_d, la_d = count_run(
+                    lambda ph, m=m: both_curves(m),
+                    ("bp_decode", "esn_predict", "esn_states",
+                     "svdvals_small"), f"dist nccl {tag}")
                 _log(f"[dist nccl] {'one-rank group' if m else 'no group'}: "
                      f"run_nbf_curve mimo_4x8_nbf 12 dB 8 blocks, "
                      f"run_cdl_curve mimo_4x8_cdl 12 dB 16 blocks (1 cal + 1 "
@@ -2499,6 +2818,18 @@ def main() -> None:
             _check(same(curves["group"], curves["none"]),
                    "dist nccl: the curves over the group differ from those "
                    "without one")
+            # the eager NBF point over the group sums its counters with an
+            # NCCL all_reduce (the curves above run fused at one rank and
+            # reduce nothing): against the same point without a group
+            keys_d = rng.block_keys(rng.prng_key(0), 0,
+                                    torch.arange(8)).reshape(1, 8, 2)
+            _check(mesh.group is not None,
+                   "dist nccl: the one-rank layout has no process group")
+            pt_g = nbf_snr_point(c_n, 12.0, keys_d, mesh=mesh)
+            pt_n = nbf_snr_point(c_n, 12.0, keys_d)
+            _check(same(pt_g, pt_n),
+                   "dist nccl: the eager NBF point summed over the group "
+                   "differs from the one without a group")
             taps = torch.randn(8, 4, 8, dtype=torch.complex64, generator=gen,
                                device=dev)
             xs_d = torch.randn(4, 4096, dtype=torch.complex64, generator=gen,
@@ -2509,7 +2840,8 @@ def main() -> None:
             _check(err_f <= 1e-6, f"dist nccl: sharded_fir at one rank is "
                                   f"{err_f} from the FIR (relative)")
             _log(f"[dist nccl] NCCL group of world size 1 in {init_s:.2f} s: "
-                 f"curves over it identical to those without a group; "
+                 f"curves over it, and the eager NBF point's counters summed "
+                 f"by all_reduce, identical to those without a group; "
                  f"sharded_fir (8 x 4 taps of 8, 4,096 samples) within "
                  f"{err_f:.2e} of the FIR (relative, tolerance 1e-6) | "
                  f"nbf {curves['group'][0].ber} cdl uncoded "
@@ -2565,13 +2897,20 @@ def main() -> None:
             "nbf main 12 dB",
             lambda: nbf_snr_point(nbf, 12.0, nbf_keys[12.0]),
             1e3 * nbf_wall[12.0])
+        # one replayed [nbf step] call (2 rounds of 128 blocks at 12 dB),
+        # after a call that captures its graph again where released
+        def nbf_fused():
+            return tmc._host_nbf(nstep(12.0, keys_n[1]))
+
+        nbf_fused()
+        _profile_main_path("nbf step", nbf_fused, 1e3 * best_n)
 
     # ---- 8. result lines ----------------------------------------------------
     for name, n in launches_total.items():
         if name in kernels:
             kernels[name]["launches"] = n
     order = ("bp_decode", "bp_decode_layered", "esn_predict", "esn_states",
-             "esn_predict_grouped", "esn_predict_ablate")
+             "esn_predict_grouped", "esn_predict_ablate", "svdvals_small")
     keys_out = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
@@ -2629,6 +2968,8 @@ def _counter_of(kernel: str):
         return "bp_decode_layered"
     if "bp_flooding_kernel" in kernel:
         return "bp_decode"
+    if "svdvals_small_kernel" in kernel:
+        return "svdvals_small"
     return None
 
 

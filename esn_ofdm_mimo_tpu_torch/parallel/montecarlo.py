@@ -28,7 +28,7 @@ It runs two ways, with the same counters and calibrators bit for bit:
     code without QC structure (the graph decoder compacts with
     torch.nonzero) or an active `debug_nan_checks` (its checks read
     values on the host). A capture that fails raises
-    (pipelines/cdl.py:GraphCaptureError); nothing falls back.
+    (pipelines/graphs.py:GraphCaptureError); nothing falls back.
 
 `run_cdl_curve` sweeps the SNR grid as the JAX one does: without a
 checkpoint the whole grid (`make_fused_cdl_grid`), with one the per-SNR
@@ -38,11 +38,22 @@ cap is reached). The round budget is split into calibration and decode
 rounds, per-SNR keys are block_keys(root, snr index, global block ids)
 with the calibration ids first; per-SNR checkpoints and progress lines.
 
-Block fading (`nbf_snr_point`, `run_nbf_curve`): rounds of run_nbf_blocks,
-counters summed per SNR, the same key stream (the one the JAX fused NBF grid
-folds on the device), the same top-up, checkpoints and progress, and
-`assemble_curve` into a `CurveResult`; eager (the NBF round's SVD checks
-convergence on the host).
+Block fading: rounds of run_nbf_blocks, counters summed per SNR, the same
+key stream (the one the JAX fused NBF grid folds on the device), the same
+top-up, checkpoints and progress, and `assemble_curve` into a
+`CurveResult`. Two ways again, with the same counters bit for bit:
+
+  * fused (`make_sharded_nbf_step`, `make_sharded_nbf_scan_step`,
+    `make_fused_nbf_grid`, the JAX builders): the round body of
+    pipelines/blockfading.py:NbfRounds, one CUDA graph a BP cap, replayed
+    for every round, call and SNR point; counters on the card until read;
+  * eager (`nbf_snr_point`): a Python loop of run_nbf_blocks, where
+    `nbf_eager_reason` names a reason (several ranks, a code without QC
+    structure, debug_nan_checks; uncoded configs run fused).
+
+`run_nbf_curve` routes as the JAX one does: the grid without a checkpoint,
+the scan step a call with one, a `step_factory` (the fault-injection hook)
+one round a call; the top-up through the scan step.
 
 Counters are summed in int64, so the JAX package's int32 guards go away.
 `_call_with_retry` re-runs a call on a runtime failure: calls are pure
@@ -71,12 +82,13 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
-from ..pipelines.blockfading import NbfCounts, run_nbf_blocks
+from ..pipelines.blockfading import (NbfCounts, NbfRounds, bp_iter_cap,
+                                     run_nbf_blocks)
 from ..pipelines.cdl import (CDL_DETECTORS, CdlCalData, CdlCounts, CdlRounds,
-                             GraphCaptureError, cached_graphs,
-                             cdl_decode_counters, fit_calibrators, graph_key,
+                             cdl_decode_counters, fit_calibrators,
                              run_cdl_cal_blocks, run_cdl_detect_llrs)
 from ..pipelines.common import EbnoRow, ebno_rows
+from ..pipelines.graphs import GraphCaptureError, cached_graphs, graph_key
 from ..utils import rng
 from ..utils.device import resolve_device
 from ..utils.metrics import (EventClock, PhaseClock, check_finite,
@@ -257,6 +269,20 @@ def eager_reason(cfg: SimConfig, mesh: TrialsMesh | None = None
     if mesh is not None and mesh.size > 1:
         return "a layout of several ranks"
     if not (cfg.ldpc.enabled and cfg.ldpc.family == "qc"):
+        return "a code without QC structure"
+    if nan_checks_enabled():
+        return "debug_nan_checks"
+    return None
+
+
+def nbf_eager_reason(cfg: SimConfig, mesh: TrialsMesh | None = None
+                     ) -> str | None:
+    """Why the block-fading route runs eagerly, or None where it runs fused:
+    the reasons of `eager_reason`, but an uncoded config (no code, no BP)
+    runs fused."""
+    if mesh is not None and mesh.size > 1:
+        return "a layout of several ranks"
+    if cfg.ldpc.enabled and cfg.ldpc.family != "qc":
         return "a code without QC structure"
     if nan_checks_enabled():
         return "debug_nan_checks"
@@ -483,18 +509,26 @@ def _add_counts(a, b):
 
 
 def _host(x):
-    """A counter leaf on the host: int, float, or an int64 numpy array."""
+    """A counter leaf on the host: int, float, or an int64 numpy array
+    (host values pass through)."""
     if isinstance(x, dict):
         return {k: _host(v) for k, v in x.items()}
+    if not isinstance(x, torch.Tensor):
+        return x
     if x.ndim > 0:
         return x.cpu().numpy().astype(np.int64)
     return float(x) if x.is_floating_point() else int(x)
 
 
+def _host_nbf(c: NbfCounts) -> NbfCounts:
+    return NbfCounts(*(_host(x) for x in c))
+
+
 def nbf_snr_point(cfg: SimConfig, ebno_db: float, keys, device=None,
                   timings: dict | None = None,
                   mesh: TrialsMesh | None = None) -> NbfCounts:
-    """Rounds of run_nbf_blocks at one Eb/N0, counters summed over rounds.
+    """Rounds of run_nbf_blocks at one Eb/N0, counters summed over rounds:
+    the eager block-fading point.
 
     keys (R, G, 2): per-block uint32 key data (numpy or tensors), as
     utils.rng.block_keys makes them. `device` defaults to "cuda" and raises
@@ -511,7 +545,106 @@ def nbf_snr_point(cfg: SimConfig, ebno_db: float, keys, device=None,
     for bkeys in keys:
         c = run_nbf_blocks(cfg, ebno_db, bkeys, mark=clock.mark)
         acc = c if acc is None else _add_counts(acc, c)
-    return _sum_over_ranks(NbfCounts(*(_host(x) for x in acc)), mesh)
+    return _sum_over_ranks(_host_nbf(acc), mesh)
+
+
+def _nbf_rounds(cfg: SimConfig, G: int, dev: torch.device) -> NbfRounds:
+    """The cached NbfRounds of (cfg, G, card, predict switch)."""
+    key = graph_key(cfg, G, dev, "nbf")
+    return cached_graphs(key, lambda: NbfRounds(key[1], G, key[3]))
+
+
+def _nbf_cap(cfg: SimConfig, ebno_db: float) -> int | None:
+    """A call's BP cap, bp_iter_cap of its Eb/N0; None for an uncoded
+    config (no BP, one body)."""
+    return bp_iter_cap(cfg, ebno_db) if cfg.ldpc.enabled else None
+
+
+def make_sharded_nbf_scan_step(cfg: SimConfig, device=None,
+                               mesh: TrialsMesh | None = None):
+    """R rounds a call (JAX make_sharded_nbf_scan_step): step(ebno_db, keys
+    (R, G, 2)) -> NbfCounts summed over the R rounds.
+
+    Fused (`nbf_eager_reason` None): the Eb/N0's row and each round's keys
+    are copied into the NbfRounds buffers (device to device) and the body
+    of the Eb/N0's BP cap replayed R times; the first call of a (cfg, G, cap)
+    captures it. The counters are int64 (capacity float64) tensors on the
+    card: nothing syncs the host until the caller reads them. On the CPU
+    the same body runs eagerly. Eager: `nbf_snr_point` (with a `mesh`, on
+    this rank's share, the counters summed over the ranks)."""
+    dev = resolve_device(device)
+    reason = nbf_eager_reason(cfg, mesh)
+
+    def step(ebno_db: float, keys) -> NbfCounts:
+        if reason is not None:
+            return nbf_snr_point(cfg, ebno_db, keys, dev, mesh=mesh)
+        keys = rng.as_keys(keys, dev)
+        with _on(dev):
+            g = _nbf_rounds(cfg, keys.shape[1], dev)
+            _stage_row(g, cfg, ebno_db)
+            g.rounds(keys, _nbf_cap(cfg, ebno_db))
+            return g.counts()
+
+    return step
+
+
+def make_sharded_nbf_step(cfg: SimConfig, device=None,
+                          mesh: TrialsMesh | None = None):
+    """One round a call (JAX make_sharded_nbf_step): step(ebno_db, keys
+    (G, 2)) -> NbfCounts, the scan step on one round."""
+    dev = resolve_device(device)
+    scan = make_sharded_nbf_scan_step(cfg, dev, mesh)
+
+    def step(ebno_db: float, keys) -> NbfCounts:
+        return scan(ebno_db, rng.as_keys(keys, dev)[None])
+
+    return step
+
+
+def make_fused_nbf_grid(cfg: SimConfig, blocks_per_round: int, rounds: int,
+                        device=None, mesh: TrialsMesh | None = None):
+    """The whole SNR grid of cfg.ebno_db in one call (JAX
+    make_fused_nbf_grid): grid(root) -> one host NbfCounts per SNR point.
+
+    It folds every point's keys on the device up front, block_keys(root,
+    snr index, ids 0 .. rounds * blocks_per_round - 1) (the per-SNR path's
+    stream), stages every point's Eb/N0 row once, picks each point's BP
+    cap on the host from cfg.ebno_db, replays the rounds and copies the
+    point's counters into stacked (n_snr, ...) device buffers, and reads
+    those once, at the end. Equal to the per-SNR scan step (and to
+    `nbf_snr_point`) on the same keys, bit for bit. Where `nbf_eager_reason`
+    names a reason it loops `nbf_snr_point` (with a `mesh`, each rank on its
+    share of the global rounds of blocks_per_round blocks)."""
+    dev = resolve_device(device)
+    G, R = blocks_per_round, rounds
+    ebnos = tuple(float(e) for e in np.asarray(cfg.ebno_db,
+                                               dtype=np.float32))
+    reason = nbf_eager_reason(cfg, mesh)
+
+    def grid(root) -> list:
+        root = rng.as_keys(root, dev)
+        ids = torch.arange(R * G, device=dev)
+        keys = [rng.block_keys(root, jj, ids).reshape(R, G, 2)
+                for jj in range(len(ebnos))]
+        if reason is not None:
+            return [nbf_snr_point(cfg, e, k, dev, mesh=mesh)
+                    for e, k in zip(ebnos, keys)]
+        with _on(dev):
+            g = _nbf_rounds(cfg, G, dev)
+            rows = ebno_rows(cfg, ebnos, dev)
+            bufs = (g.det_acc, g.totals, g.capacity_sum, g.cond_hist)
+            outs = [b.new_zeros((len(ebnos),) + b.shape) for b in bufs]
+            for jj, e in enumerate(ebnos):
+                g.row.copy_(rows[jj])
+                g.rounds(keys[jj], _nbf_cap(cfg, e))
+                for o, b in zip(outs, bufs):
+                    o[jj].copy_(b)
+            det, tot, cap = (o.tolist() for o in outs[:3])
+            hist = outs[3].cpu().numpy()
+        return [g.counts(det[j], tot[j], cap[j], hist[j])
+                for j in range(len(ebnos))]
+
+    return grid
 
 
 @dataclasses.dataclass
@@ -605,7 +738,8 @@ def run_nbf_curve(cfg: SimConfig, blocks_per_snr: int,
                   adaptive_min_errors: Optional[int] = None,
                   adaptive_max_blocks: Optional[int] = None,
                   adaptive_on_uncoded: bool = False,
-                  mesh: TrialsMesh | None = None) -> CurveResult:
+                  mesh: TrialsMesh | None = None,
+                  step_factory=None) -> CurveResult:
     """The SNR sweep of a block-fading experiment (JAX run_nbf_curve).
 
     blocks_per_snr is rounded up to whole calls of `rounds_per_call` rounds
@@ -615,24 +749,49 @@ def run_nbf_curve(cfg: SimConfig, blocks_per_snr: int,
     n - 1), the JAX package's stream, so the classical detectors draw the
     same blocks.
 
+    The route, as the JAX package picks it: without a checkpoint the whole
+    grid in one call (`make_fused_nbf_grid`), with one the scan step
+    (`make_sharded_nbf_scan_step`) a call of `rounds_per_call` rounds; a
+    `step_factory(cfg, device=..., mesh=...)` (the fault-injection hook)
+    gives a step of the legacy signature, step(ebno_db, keys (G, 2)), one
+    round a call. Where `nbf_eager_reason` names a reason the builders run
+    `nbf_snr_point`. Every route gives the same counters.
+
     adaptive_min_errors: after the base budget at an SNR point, keep adding
-    rounds until EVERY detector has at least this many failed codewords
-    (frame errors: coded bit errors cluster per failed codeword, so frame
-    counts set the effective sample size), or, with adaptive_on_uncoded,
-    uncoded bit errors; or until adaptive_max_blocks (default 4 x
+    rounds through the scan step, continuing the block ids, until EVERY
+    detector has at least this many failed codewords (frame errors: coded
+    bit errors cluster per failed codeword, so frame counts set the
+    effective sample size), or, with adaptive_on_uncoded or an uncoded
+    config, uncoded bit errors; or until adaptive_max_blocks (default 4 x
     blocks_per_snr) is reached. `checkpoint` (utils.checkpoint.SnrCheckpoint)
     saves each finished SNR point (rank 0 of a `mesh` alone) and skips the
     ones it holds."""
     dev = resolve_device(device)
     G = blocks_per_round * (1 if mesh is None else mesh.size)
     rounds = max(1, -(-blocks_per_snr // G))
-    R = max(1, min(rounds_per_call, rounds))
+    R = 1 if step_factory is not None else max(1, min(rounds_per_call,
+                                                      rounds))
     calls = -(-rounds // R)
     root = rng.prng_key(cfg.seed if seed is None else seed)
     ebnos = np.asarray(cfg.ebno_db, dtype=np.float32)
     max_blocks = (4 * blocks_per_snr if adaptive_max_blocks is None
                   else adaptive_max_blocks)
     coded_unit = cfg.ldpc.enabled and not adaptive_on_uncoded
+    retries = 0 if _distributed(mesh) else 2
+    steps = {}
+
+    def call(name, fn, args):
+        if name not in steps:
+            steps[name] = fn(cfg, device=dev, mesh=mesh)
+        return _host_nbf(_call_with_retry(steps[name], args,
+                                          progress=progress,
+                                          retries=retries))
+
+    grid_pts = None
+    if checkpoint is None and step_factory is None:
+        grid = make_fused_nbf_grid(cfg, G, calls * R, dev, mesh)
+        grid_pts = _call_with_retry(grid, (root,), progress=progress,
+                                    retries=retries)
 
     acc_per_snr = []
     for jj, ebno in enumerate(ebnos):
@@ -644,14 +803,20 @@ def run_nbf_curve(cfg: SimConfig, blocks_per_snr: int,
 
         def run_rounds(first_id, n_rounds):
             keys = _round_keys(root, jj, first_id, n_rounds, G)
-            return _call_with_retry(nbf_snr_point,
-                                    (cfg, float(ebno), keys, dev, None, mesh),
-                                    progress=progress,
-                                    retries=0 if _distributed(mesh) else 2)
+            return call("scan", make_sharded_nbf_scan_step,
+                        (float(ebno), keys))
 
-        acc = run_rounds(0, R)
-        for c in range(1, calls):
-            acc = _add_counts(acc, run_rounds(c * R * G, R))
+        if grid_pts is not None:
+            acc = grid_pts[jj]
+        else:
+            acc = None
+            for c in range(calls):
+                cnt = (call("factory", step_factory,
+                            (float(ebno),
+                             _round_keys(root, jj, c * G, 1, G)[0]))
+                       if step_factory is not None
+                       else run_rounds(c * R * G, R))
+                acc = cnt if acc is None else _add_counts(acc, cnt)
         acc = _adaptive_topup(
             acc, run_rounds,
             lambda a: a.frame_errors if coded_unit else a.bit_errors,

@@ -38,7 +38,7 @@ from esn_ofdm_mimo_tpu_torch.ldpc import decode_cuda
 from esn_ofdm_mimo_tpu_torch.models import esn_mimo, esn_states_cuda
 from esn_ofdm_mimo_tpu_torch.parallel import montecarlo as tmc
 from esn_ofdm_mimo_tpu_torch.parallel.mesh import TrialsMesh
-from esn_ofdm_mimo_tpu_torch.pipelines import cdl
+from esn_ofdm_mimo_tpu_torch.pipelines import cdl, graphs
 from esn_ofdm_mimo_tpu_torch.utils import rng
 from esn_ofdm_mimo_tpu_torch.utils.checkpoint import SnrCheckpoint
 from esn_ofdm_mimo_tpu_torch.utils.metrics import debug_nan_checks
@@ -222,7 +222,7 @@ def test_graph_cache_releases_the_least_recent(monkeypatch):
         def release(self):
             released.append(self.i)
 
-    monkeypatch.setattr(cdl, "_CACHE", type(cdl._CACHE)())
+    monkeypatch.setattr(graphs, "_CACHE", type(graphs._CACHE)())
     cpu = torch.device("cpu")
     keys = [cdl.graph_key(_cdl_cfg(), g, cpu, "cdl") for g in range(6)]
     for i, k in enumerate(keys[:4]):
@@ -231,7 +231,7 @@ def test_graph_cache_releases_the_least_recent(monkeypatch):
     cdl.cached_graphs(keys[4], lambda: Set(4))
     assert released == [1]              # 0 was used last, 1 is the oldest
     cdl.release_graphs()
-    assert sorted(released) == [0, 1, 2, 3, 4] and not cdl._CACHE
+    assert sorted(released) == [0, 1, 2, 3, 4] and not graphs._CACHE
 
 
 class _NoHostSync(TorchDispatchMode):

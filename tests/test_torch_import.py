@@ -25,6 +25,7 @@ def test_port_imports_with_jax_blocked():
             "esn_ofdm_mimo_tpu_torch.ldpc.decode_cuda, "
             "esn_ofdm_mimo_tpu_torch.models.esn_cuda, "
             "esn_ofdm_mimo_tpu_torch.models.esn_states_cuda, "
+            "esn_ofdm_mimo_tpu_torch.ops.analytics, "
             "esn_ofdm_mimo_tpu_torch.pipelines.blockfading, "
             "esn_ofdm_mimo_tpu_torch.experiments.run, "
             "esn_ofdm_mimo_tpu_torch.utils.checkpoint, "
@@ -75,6 +76,23 @@ def test_entry_point_without_cuda_raises():
     keys = np.zeros((1, 1, 2), np.uint32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cdl_snr_point(mimo_4x8_cdl(), 12.0, keys, keys)
+
+
+@pytest.mark.parametrize("builder", ["make_sharded_nbf_step",
+                                     "make_sharded_nbf_scan_step",
+                                     "make_fused_nbf_grid"])
+def test_nbf_builders_without_cuda_raise(builder):
+    """The NBF builders run on the card unless device="cpu" is asked for."""
+    from esn_ofdm_mimo_tpu_torch.experiments.presets import mimo_4x8_nbf
+    from esn_ofdm_mimo_tpu_torch.parallel import montecarlo
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    make = getattr(montecarlo, builder)
+    args = (4, 1) if builder == "make_fused_nbf_grid" else ()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(mimo_4x8_nbf(), *args)
+    assert callable(make(mimo_4x8_nbf(), *args, device="cpu"))
 
 
 def test_presets_equal_the_jax_presets():
