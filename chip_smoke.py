@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--profile]
 
+(`chip_smoke.py --dist-child <dir>` is one rank of [dist fused 2 ranks],
+started by the run itself.)
+
 Builds the port's seven CUDA kernels from esn_ofdm_mimo_tpu_torch/csrc/ (one
 nvcc per source, all started together; sm_90a), then:
 
@@ -246,10 +249,25 @@ nvcc per source, all started together; sm_90a), then:
        identical to the same calls without a group; the eager
        nbf_snr_point (8 blocks, 12 dB) over it, its counters summed by an
        NCCL all_reduce, identical to the point without a group;
-       sharded_fir at one rank within 1e-6 of the FIR, the group destroyed
-       afterwards; [scaling] the scaling CLI
-       (experiments/scaling.py --fast) at one NCCL rank, its --out read
-       (one card: no scaling efficiency).
+       sharded_fir at one rank within 1e-6 of the FIR; [dist nccl fused]
+       make_fused_cdl_snr_step and make_fused_cdl_grid (mimo_4x8_cdl, 8
+       blocks, 1 + 1 rounds), make_sharded_nbf_scan_step and
+       make_fused_nbf_grid (mimo_4x8_nbf, 8 blocks, 1 round) over the
+       group (the pairs gathered, the counters summed by NCCL between the
+       replays) identical to the same calls without a group and to the
+       eager route over the group; a replayed call of each step under
+       set_sync_debug_mode("error"), one traced (K1, K2, K3, on NBF the
+       SVD kernel, launched by replays; none from Python), the walls
+       beside the eager route's; the group destroyed afterwards;
+       [scaling] the scaling CLI (experiments/scaling.py --fast) at one
+       NCCL rank, its --out read (one card: no scaling efficiency);
+       [dist fused 2 ranks] two processes on the one card (`chip_smoke.py
+       --dist-child`, a timeout each) in a gloo group, each replaying its
+       own CUDA graphs on its share: the flagship's fused point and grid
+       (2 x 8 blocks, 1 + 1 rounds, 12 dB) and the NBF scan step (2 x 4
+       blocks) equal one process's fused route on the same global blocks
+       in rng_mode="block" (calibrators included) and the eager route over
+       the two ranks in "batch", bit for bit.
      No QC path may reach the graph decoder (its count stays 0);
   8. one JSON line listing the kernels (launches on the main paths: the
      wrappers' counts, and for the phases with CUDA graph replays the
@@ -1430,9 +1448,10 @@ def main() -> None:
     def count_run(run, need, what: str, traced: bool = False):
         """Run `run` with every launch count reset just before and read just
         after; the kernels in `need` must have launched. With `traced` the
-        run is traced (torch.profiler) and its launches are the kernels the
-        card ran, counted by name: a CUDA graph's replays launch nothing
-        from Python. The wall is then the traced run's."""
+        run is traced (torch.profiler; `_trace_kernels` runs it until two
+        traces agree) and its launches are the kernels the card ran,
+        counted by name: a CUDA graph's replays launch nothing from Python.
+        The wall is then the traced runs'."""
         sync()
         reset_counts()
         phases = {}
@@ -2336,7 +2355,7 @@ def main() -> None:
         # Bands from the JAX package's own curve (TPU run,
         # results/siso_qpsk_awgn_tpu_qc/results_ber.csv)
         out_s = os.path.join(tmp, "siso")
-        _, _, wall_s, la_s = count_run(
+        _, _, wall_si, la_si = count_run(
             lambda ph: cli.main(
                 ["--preset", "siso_qpsk_awgn", "--ebno-list", "12,15,21",
                  "--blocks-per-device", "1", "--blocks-per-snr", "8",
@@ -2363,7 +2382,7 @@ def main() -> None:
                                   f"[{lo}, {hi}]")
         _log(f"[curve siso] CLI siso_qpsk_awgn 12/15/21 dB, 8 rounds of one "
              f"block (N 512, 399 data symbols, n_res 200, n = "
-             f"{code_s.n}): wall {1e3 * wall_s:.1f} ms | launches {la_s}")
+             f"{code_s.n}): wall {1e3 * wall_si:.1f} ms | launches {la_si}")
         for e_s, r in ber_s.items():
             _log(f"[curve siso] EbNo {e_s:g} dB: " + " ".join(
                 f"{h} {v:.4e}" for h, v in r.items() if h != "EbNo(dB)"))
@@ -2759,6 +2778,180 @@ def main() -> None:
             if line.startswith(("[2x2]", "[warn]")):
                 _log(f"[compare2x2 cli] {line}")
 
+        def dist_nccl_fused(mesh, c_c, c_n):
+            """[dist nccl fused]: the fused builders over the one-rank NCCL
+            group `mesh` (the pairs gathered by all_gather_into, the
+            counters summed by all_sum_, both between replays) against the
+            same calls without a group, bit for bit, at full width, 8 blocks
+            a round (CDL 1 + 1 rounds, NBF 1 round, 12 dB); a replayed call
+            of each step under set_sync_debug_mode("error") until the
+            counters are read; one traced (K1, K2, K3 and on NBF the SVD
+            kernel launched by replays, none from Python); the walls beside
+            the eager route over the same group."""
+            G_d, root_d = 8, rng.prng_key(0)
+            kc = rng.block_keys(root_d, 0, torch.arange(2 * G_d)).reshape(
+                2, G_d, 2).to(dev)
+            kn = kc[:1]
+            runs = {}
+            for tag, m in (("group", mesh), ("none", None)):
+                runs[tag] = (
+                    tmc.make_fused_cdl_snr_step(c_c, mesh=m),
+                    tmc.make_fused_cdl_grid(c_c, G_d, 1, 1, mesh=m),
+                    tmc.make_sharded_nbf_scan_step(c_n, mesh=m),
+                    tmc.make_fused_nbf_grid(c_n, G_d, 1, mesh=m))
+            calls = (lambda b: tmc._host_point(b(12.0, kc[:1], kc[1:])),
+                     lambda b: b(root_d),
+                     lambda b: tmc._host_nbf(b(12.0, kn)),
+                     lambda b: b(root_d))
+            out = {tag: [c(b) for c, b in zip(calls, bs)]
+                   for tag, bs in runs.items()}
+            _check(same(out["group"], out["none"]),
+                   "dist nccl fused: the fused builders over the one-rank "
+                   "group differ from the same calls without a group")
+            _check(same(out["group"][0], out["group"][1][0])
+                   and same(out["group"][2], out["group"][3][0]),
+                   "dist nccl fused: a step differs from its grid")
+            step_c, _, step_n, _ = runs["group"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pt_c, pt_n = step_c(12.0, kc[:1], kc[1:]), step_n(12.0, kn)
+            except RuntimeError as e:
+                _fail(f"dist nccl fused: a replayed call over the group "
+                      f"synchronizes the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            _check(same(tmc._host_point(pt_c), out["group"][0])
+                   and same(tmc._host_nbf(pt_n), out["group"][2]),
+                   "dist nccl fused: the calls under sync debug mode gave "
+                   "other points")
+            la, n_nccl = {}, {}
+            for what, fn, need in (
+                    ("cdl", lambda ph: calls[0](step_c),
+                     ("bp_decode", "esn_predict", "esn_states")),
+                    ("nbf", lambda ph: calls[2](step_n),
+                     ("bp_decode", "esn_predict", "esn_states",
+                      "svdvals_small"))):
+                reset_counts()
+                _, per = _trace_kernels(lambda: fn(None))
+                la_py = read_counts()
+                _check(not any(la_py.values()),
+                       f"dist nccl fused {what}: a replayed call launched "
+                       f"from Python: {la_py}")
+                la[what] = _traced_launches(per, la_py)
+                _check(all(la[what][k] > 0 for k in need),
+                       f"dist nccl fused {what}: a kernel of the path was "
+                       f"not launched by the replays: {la[what]}")
+                for k, v in la[what].items():
+                    launches_total[k] += v
+                n_nccl[what] = sum(n for name, (_, n) in per.items()
+                                   if "nccl" in name.lower())
+            walls = {}
+            eager = {}
+            walls["cdl fused"] = wall_s(lambda: calls[0](step_c))
+            walls["cdl eager"] = wall_s(lambda: eager.update(cdl=cdl_snr_point(
+                c_c, 12.0, kc[:1], kc[1:], mesh=mesh)))
+            walls["nbf fused"] = wall_s(lambda: calls[2](step_n))
+            walls["nbf eager"] = wall_s(lambda: eager.update(nbf=nbf_snr_point(
+                c_n, 12.0, kn, mesh=mesh)))
+            _check(same(eager["cdl"], out["group"][0])
+                   and same(eager["nbf"], out["group"][2]),
+                   "dist nccl fused: the eager route over the group differs "
+                   "from the fused one")
+            _log(f"[dist nccl fused] one-rank NCCL group, mimo_4x8_cdl 12 dB "
+                 f"{G_d} blocks x (1 cal + 1 decode) and mimo_4x8_nbf 12 dB "
+                 f"{G_d} blocks x 1 round: make_fused_cdl_snr_step, "
+                 f"make_fused_cdl_grid, make_sharded_nbf_scan_step and "
+                 f"make_fused_nbf_grid over the group identical to the same "
+                 f"calls without one, and to the eager route over the group; "
+                 f"a replayed step syncs nowhere (sync debug mode) | traced "
+                 f"launches of one replayed call: cdl {la['cdl']}, nbf "
+                 f"{la['nbf']}; NCCL kernels in the traces {n_nccl} | wall "
+                 f"ms over the group: cdl fused "
+                 f"{1e3 * walls['cdl fused']:.3f}, eager "
+                 f"{1e3 * walls['cdl eager']:.3f}; nbf fused "
+                 f"{1e3 * walls['nbf fused']:.3f}, eager "
+                 f"{1e3 * walls['nbf eager']:.3f} | {smi}")
+
+        def dist_fused_two_ranks(out: str, port: int):
+            """[dist fused 2 ranks] (see the comment where it is called)."""
+            os.makedirs(out)
+            modes = {m: tuple(dataclasses.replace(
+                c, esn=dataclasses.replace(c.esn, rng_mode=m),
+                ebno_db=(12.0,)) for c in (cfg, nbf))
+                for m in ("block", "batch")}
+            G_c, G_n = 16, 8
+            root_d = rng.prng_key(0)
+            kc = rng.block_keys(root_d, 0, torch.arange(2 * G_c)).reshape(
+                2, G_c, 2)
+            kn = rng.block_keys(root_d, 0, torch.arange(G_n)).reshape(
+                1, G_n, 2)
+            with open(os.path.join(out, "inputs.pkl"), "wb") as f:
+                pickle.dump({"modes": modes, "cdl keys": kc, "nbf keys": kn,
+                             "root": root_d, "device": "cuda"}, f)
+            here = os.path.dirname(os.path.abspath(__file__))
+            env = dict(os.environ, MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port), WORLD_SIZE="2", PYTHONPATH=here)
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-child",
+                 out], cwd=here, env=dict(env, RANK=str(r)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(2)]
+            try:
+                # one process's fused route on the same global blocks
+                c_b, n_b = modes["block"]
+                one = {"cdl step": tmc._host_point(
+                           tmc.make_fused_cdl_snr_step(c_b)(
+                               12.0, kc[:1].to(dev), kc[1:].to(dev))),
+                       "cdl grid": tmc.make_fused_cdl_grid(
+                           c_b, G_c, 1, 1)(root_d)[0],
+                       "nbf scan": tmc._host_nbf(
+                           tmc.make_sharded_nbf_scan_step(n_b)(
+                               12.0, kn.to(dev)))}
+                # one deadline for both ranks, 300 s from their start
+                logs = [p.communicate(timeout=max(
+                    1.0, 300 - (time.perf_counter() - t0)))[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                _check(p.returncode == 0,
+                       f"dist fused 2 ranks: rank {r} exited "
+                       f"{p.returncode}:\n{log[-4000:]}")
+            res = []
+            for r in range(2):
+                with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+                    res.append(pickle.load(f))
+            for r, got in enumerate(res):
+                _check(got["graphs"] and got["layout"] == [(2, r)],
+                       f"dist fused 2 ranks: rank {r} replayed no CUDA "
+                       f"graphs of its layout: {got['graphs']}, "
+                       f"{got['layout']}")
+                for k in one:
+                    _check(same(got[k, "block"], one[k]),
+                           f"dist fused 2 ranks: rank {r}'s {k} in block "
+                           f"mode differs from one process's")
+                for k, e in (("cdl step", "cdl eager"),
+                             ("cdl grid", "cdl eager"),
+                             ("nbf scan", "nbf eager")):
+                    _check(same(got[k, "batch"], got[e]),
+                           f"dist fused 2 ranks: rank {r}'s {k} in batch "
+                           f"mode differs from the eager route over the "
+                           f"ranks")
+            c_1 = one["cdl step"].counts
+            _log(f"[dist fused 2 ranks] two processes on one card, a gloo "
+                 f"group: mimo_4x8_cdl 12 dB 2 x {G_c // 2} blocks x (1 cal "
+                 f"+ 1 decode), mimo_4x8_nbf 12 dB 2 x {G_n // 2} blocks x 1 "
+                 f"round, each rank replaying its own CUDA graphs: block "
+                 f"mode identical to one process's fused route (calibrators "
+                 f"included; info errors {c_1.info_errors}), batch mode "
+                 f"identical to the eager route over the two ranks | rank "
+                 f"walls ms {[got['walls'] for got in res]} | phase wall "
+                 f"{wall:.1f} s | {smi}")
+
         # ---- torch.distributed at one NCCL rank ------------------------------
         # [dist nccl]: a process group of world size 1 from the variables
         # torchrun sets, through maybe_init_distributed(); the curves over
@@ -2846,6 +3039,7 @@ def main() -> None:
                  f"{err_f:.2e} of the FIR (relative, tolerance 1e-6) | "
                  f"nbf {curves['group'][0].ber} cdl uncoded "
                  f"{curves['group'][1][0]['ber_uncoded']}")
+            dist_nccl_fused(mesh, c_c, c_n)
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
@@ -2873,6 +3067,17 @@ def main() -> None:
              f"{1e3 * sc['1']['seconds_per_round']:.1f} ms a round | wall "
              f"{1e3 * wall_sc:.1f} ms | launches {la_sc} (one H100: no "
              f"scaling efficiency)")
+
+        # [dist fused 2 ranks]: two processes on the one card (NCCL refuses
+        # two ranks on one GPU) in a gloo group, each rank's CUDA tensors
+        # staged through the host by parallel/mesh.py; each replays its own
+        # CUDA graphs on its share (`_dist_child`). Block mode: the
+        # flagship point and grid (2 x 8 blocks, 1 + 1 rounds, 12 dB) and
+        # the NBF scan step (2 x 4 blocks, 1 round) equal one process's
+        # fused route on the same global blocks, calibrators included,
+        # computed here while the children run; batch mode: they equal the
+        # eager route over the same two ranks, computed by the children
+        dist_fused_two_ranks(os.path.join(tmp, "dist2"), free_port())
 
     if "--profile" in sys.argv[1:]:
         _profile_main_path(
@@ -2922,27 +3127,50 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def _trace_kernels(run):
+def _trace_kernels(run, tries: int = 4, settle_s: float = 0.3):
     """`run()` under torch.profiler: (its result, kernel name -> [device
     ms, launches]). The card's trace (CUPTI) holds every kernel that ran,
-    those that a CUDA graph replay launched too."""
+    those that a CUDA graph replay launched too, but it loses the records
+    of the run's last milliseconds when the profiler stops right after the
+    synchronize (a trace of one replayed [cdl snr step] call then lacks
+    its last K1 and every kernel after it), so each trace waits `settle_s`
+    after the run before it stops. Records may still go
+    missing now and then, and a trace can only miss kernels, so `run`
+    (the same launches every call) is traced until two traces count the
+    same launches of every port kernel (`_counter_of`), at most `tries`
+    times; the result is the last run's, the counts those two agree
+    on."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    # the card's activity alone: host operators would add an event each
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = run()
+    seen = {}
+    for _ in range(tries):
         torch.cuda.synchronize()
-    per = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per[e.name][0] += e.time_range.elapsed_us() / 1e3
-            per[e.name][1] += 1
-    return out, dict(per)
+        # the card's activity alone: host operators would add an event each
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+            time.sleep(settle_s)
+        per = collections.defaultdict(lambda: [0.0, 0])
+        # the raw events: prof.events() builds a Python object an event,
+        # seconds for a call's ~60k kernels
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                per[e.name()][0] += e.duration_ns() / 1e6
+                per[e.name()][1] += 1
+        la = collections.Counter()
+        for name, (_, n) in per.items():
+            if _counter_of(name):
+                la[_counter_of(name)] += n
+        key = tuple(sorted(la.items()))
+        if key in seen:
+            return out, seen[key]
+        seen[key] = dict(per)
+    _fail(f"no two of {tries} traces of one run count the same kernel "
+          f"launches: {list(seen)}")
 
 
 def _traced_launches(per: dict, counts: dict) -> dict:
@@ -2987,5 +3215,70 @@ def _profile_main_path(what: str, run, wall_ms: float) -> None:
         _log(f"[profile {what}] {ms:10.3f} ms {n:6d}x {name[:100]}")
 
 
+def _dist_child(out: str) -> None:
+    """One rank of [dist fused 2 ranks]: a gloo group from MASTER_ADDR,
+    MASTER_PORT, WORLD_SIZE and RANK on card 0 (or on the CPU where the
+    inputs say so); the fused builders over it in both modes, and in batch
+    mode the eager route over it; its results pickled to
+    <out>/rank<r>.pkl."""
+    import torch
+    import torch.distributed as dist
+    from esn_ofdm_mimo_tpu_torch.parallel import montecarlo as tmc
+    from esn_ofdm_mimo_tpu_torch.parallel import trials_mesh
+    from esn_ofdm_mimo_tpu_torch.pipelines import graphs
+
+    with open(os.path.join(out, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    dev = torch.device(inp["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    mesh = trials_mesh()
+    kc, kn = inp["cdl keys"].to(dev), inp["nbf keys"].to(dev)
+    G_c, G_n = kc.shape[1], kn.shape[1]
+    res, walls = {}, {}
+
+    def timed(name, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        walls[name] = round(1e3 * (time.perf_counter() - t0), 3)
+        return r
+
+    def host(pt):
+        """A CDL point with its calibrators on the CPU."""
+        return pt._replace(calib={d: (a.cpu(), b.cpu())
+                                  for d, (a, b) in pt.calib.items()})
+
+    for mode, (cfg, nbf) in inp["modes"].items():
+        step = tmc.make_fused_cdl_snr_step(cfg, dev, mesh)
+        grid = tmc.make_fused_cdl_grid(cfg, G_c, 1, 1, dev, mesh)
+        scan = tmc.make_sharded_nbf_scan_step(nbf, dev, mesh)
+        res["cdl step", mode] = timed(f"cdl step {mode}", lambda: host(
+            tmc._host_point(step(12.0, kc[:1], kc[1:]))))
+        res["cdl grid", mode] = timed(f"cdl grid {mode}",
+                                      lambda: grid(inp["root"])[0])
+        res["nbf scan", mode] = timed(f"nbf scan {mode}",
+                                      lambda: tmc._host_nbf(scan(12.0, kn)))
+        if mode == "batch":
+            res["cdl eager"] = timed("cdl eager", lambda: host(
+                tmc.cdl_snr_point(cfg, 12.0, kc[:1], kc[1:], dev, mesh=mesh)))
+            res["nbf eager"] = timed("nbf eager", lambda: tmc.nbf_snr_point(
+                nbf, 12.0, kn, dev, mesh=mesh))
+    # every graph set this rank made: its layout, and CUDA graphs on the card
+    sets = list(graphs._CACHE.items())
+    layout = sorted({key[5] for key, _ in sets})
+    replayed = dev.type == "cpu" or all(
+        b.graph is not None for _, g in sets for b in g.bodies.values())
+    res.update(walls=walls, layout=layout, graphs=replayed and len(sets) == 4)
+    with open(os.path.join(out, f"rank{mesh.rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-child"]:
+        _dist_child(sys.argv[2])
+    else:
+        main()

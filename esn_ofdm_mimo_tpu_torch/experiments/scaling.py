@@ -5,9 +5,12 @@ first 1, 2, 4 ... ranks (port of esn_ofdm_mimo_tpu/experiments/scaling.py).
         [--preset mimo_2x2_nbf] [--out scaling.json] [--device cuda]
     torchrun --nproc_per_node=4 -m esn_ofdm_mimo_tpu_torch.experiments.scaling
 
-Each layout of n ranks (`parallel/mesh.py:trials_mesh(n)`) runs
-`nbf_snr_point` on rounds of 2 blocks a rank: one warm-up round, then 3
-timed ones, each on fresh keys; the ranks beyond n wait. Rank 0 prints
+Each layout of n ranks (`parallel/mesh.py:trials_mesh(n)`) runs the fused
+`make_sharded_nbf_step` over its ranks (as the JAX CLI runs its sharded
+step; on the card each rank replays its CUDA graph of the round, the
+counters summed on the card) on rounds of 2 blocks a rank: one warm-up
+round, which captures the graph, then 3 timed ones, each on fresh keys;
+the ranks beyond n wait. Rank 0 prints
 blocks/s, seconds a round and the efficiency against the one-rank layout,
 and writes them to --out as JSON. The preset is always cut to its --fast
 size, as the JAX CLI's is.
@@ -27,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import device_count, maybe_init_distributed, trials_mesh
-from ..parallel.montecarlo import nbf_snr_point
+from ..parallel.montecarlo import make_sharded_nbf_step
 from ..utils import rng
 from ..utils.device import resolve_device
 
@@ -49,16 +52,16 @@ def measure_scaling(cfg, device_counts=None, blocks_per_device: int = 2,
         G = nd * blocks_per_device
 
         def round_keys(i):
-            return rng.block_keys(root, i, torch.arange(G)).reshape(1, G, 2)
+            return rng.block_keys(root, i, torch.arange(G))
 
         if mesh.member:
-            nbf_snr_point(cfg, ebno_db, round_keys(0), dev, mesh=mesh)
+            step = make_sharded_nbf_step(cfg, dev, mesh)
+            step(ebno_db, round_keys(0))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             for i in range(iters):
-                nbf_snr_point(cfg, ebno_db, round_keys(i + 1), dev,
-                              mesh=mesh)
+                step(ebno_db, round_keys(i + 1))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             dt = (time.perf_counter() - t0) / iters

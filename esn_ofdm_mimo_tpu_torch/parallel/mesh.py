@@ -10,6 +10,13 @@ returns the layout of the first n ranks, which parallel/montecarlo.py
 takes as `mesh`: each rank runs its contiguous share of every round's
 global block ids, and the counters are summed over the layout's ranks.
 Without a process group the layout is one rank and no collective runs.
+
+`all_sum_` and `all_gather_into` write into buffers made before any CUDA
+graph capture (the fused route's accumulators and its gathered calibration
+pairs; the eager route sums fresh tensors with `all_sum_` and gathers with
+`all_gather_cat`): under NCCL they run on the card on the current stream,
+which waits for them without a host wait; under gloo the tensors go
+through the host.
 """
 from __future__ import annotations
 
@@ -91,16 +98,6 @@ def _comm_device(mesh: TrialsMesh) -> torch.device:
     return torch.device("cpu")
 
 
-def all_sum(mesh: TrialsMesh, x: torch.Tensor) -> torch.Tensor:
-    """x summed over the layout's ranks (exact for integer tensors), on x's
-    device."""
-    if mesh.group is None:
-        return x
-    y = x.to(_comm_device(mesh)).clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.group)
-    return y.to(x.device)
-
-
 def all_gather_cat(mesh: TrialsMesh, x: torch.Tensor, dim: int
                    ) -> torch.Tensor:
     """The ranks' x (of equal shapes) concatenated along `dim` in rank
@@ -111,3 +108,41 @@ def all_gather_cat(mesh: TrialsMesh, x: torch.Tensor, dim: int
     parts = [torch.empty_like(y) for _ in range(mesh.size)]
     dist.all_gather(parts, y, group=mesh.group)
     return torch.cat(parts, dim=dim).to(x.device)
+
+
+def all_sum_(mesh: TrialsMesh, x: torch.Tensor) -> torch.Tensor:
+    """x (an int64 or float64 accumulator, contiguous) summed over the
+    layout's ranks in place; returns x. Under NCCL it is reduced where it
+    lies, on the current stream; under gloo through a host copy."""
+    if mesh.group is None:
+        return x
+    comm = _comm_device(mesh)
+    y = x if x.device == comm else x.to(comm)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.group)
+    if y is not x:
+        x.copy_(y)
+    return x
+
+
+def all_gather_into(mesh: TrialsMesh, out: torch.Tensor, x: torch.Tensor
+                    ) -> torch.Tensor:
+    """The ranks' x (one shape on every rank) into out (mesh.size,
+    *x.shape), contiguous, in rank order: out[r] is rank r's x. x may be
+    the view out[mesh.rank] (in place). Returns out. Under NCCL it gathers
+    where the tensors lie, on the current stream; under gloo through the
+    host."""
+    if mesh.group is None:
+        if x.data_ptr() != out[0].data_ptr():
+            out[0].copy_(x)
+        return out
+    gather = (getattr(dist, "all_gather_single", None)
+              or dist.all_gather_into_tensor)
+    comm = _comm_device(mesh)
+    # gloo copies its input into its slot of out: never from out itself
+    src = (x if comm.type == "cuda" else x.to(comm, copy=True)).reshape(-1)
+    dst = out if out.device == comm else torch.empty(
+        out.shape, dtype=out.dtype, device=comm)
+    gather(dst.view(-1), src, group=mesh.group)
+    if dst is not out:
+        out.copy_(dst)
+    return out

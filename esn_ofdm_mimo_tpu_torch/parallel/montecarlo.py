@@ -23,12 +23,11 @@ It runs two ways, with the same counters and calibrators bit for bit:
   * eager (`cdl_snr_point`, `cdl_decode_rounds`): Python loops of the same
     functions, one BP decode of the round-stacked LLRs, the counters read
     as Python ints. The fused builders and `run_cdl_curve` take it by
-    configuration only, where `eager_reason` names one: a layout of
-    several ranks (the calibration pairs are gathered over the ranks), a
-    code without QC structure (the graph decoder compacts with
-    torch.nonzero) or an active `debug_nan_checks` (its checks read
-    values on the host). A capture that fails raises
-    (pipelines/graphs.py:GraphCaptureError); nothing falls back.
+    configuration only, where `eager_reason` names one: a code without QC
+    structure (the graph decoder compacts with torch.nonzero) or an
+    active `debug_nan_checks` (its checks read values on the host). A
+    capture that fails raises (pipelines/graphs.py:GraphCaptureError);
+    nothing falls back.
 
 `run_cdl_curve` sweeps the SNR grid as the JAX one does: without a
 checkpoint the whole grid (`make_fused_cdl_grid`), with one the per-SNR
@@ -48,8 +47,8 @@ top-up, checkpoints and progress, and `assemble_curve` into a
     pipelines/blockfading.py:NbfRounds, one CUDA graph a BP cap, replayed
     for every round, call and SNR point; counters on the card until read;
   * eager (`nbf_snr_point`): a Python loop of run_nbf_blocks, where
-    `nbf_eager_reason` names a reason (several ranks, a code without QC
-    structure, debug_nan_checks; uncoded configs run fused).
+    `nbf_eager_reason` names a reason (a code without QC structure,
+    debug_nan_checks; uncoded configs run fused).
 
 `run_nbf_curve` routes as the JAX one does: the grid without a checkpoint,
 the scan step a call with one, a `step_factory` (the fault-injection hook)
@@ -66,6 +65,13 @@ W ranks. Counters are summed over the ranks (int64; the float capacity
 sum in float64, exact for its float32 terms), and the CDL calibration
 pairs are gathered in global block order before the calibrator fit, so
 every rank fits the same calibrators and takes the same top-up branch.
+Both routes run over ranks. The fused one keeps everything on the card:
+each rank captures and replays its own bodies on its share, and the
+collectives (parallel/mesh.py:all_gather_into, all_sum_) run between the
+replays on the replays' stream, outside the graphs: the pairs gathered
+after a point's cal rounds, the counters summed once a call (a grid: once,
+on its stacked per-SNR buffers). Every rank replays the same bodies in the
+same order: nothing the host decides between them reads rank-local data.
 Rank 0 alone writes checkpoints. Under EsnConfig(rng_mode="block") the
 counters equal one process's bit for bit whatever the layout; under
 "batch" each rank's share has its own shared reservoir, as each device's
@@ -93,7 +99,7 @@ from ..utils import rng
 from ..utils.device import resolve_device
 from ..utils.metrics import (EventClock, PhaseClock, check_finite,
                              nan_checks_enabled)
-from .mesh import TrialsMesh, all_gather_cat, all_sum
+from .mesh import TrialsMesh, all_gather_cat, all_sum_
 
 
 class CdlSnrPoint(NamedTuple):
@@ -109,6 +115,18 @@ class CdlSnrPoint(NamedTuple):
 
 def _distributed(mesh: TrialsMesh | None) -> bool:
     return mesh is not None and mesh.group is not None
+
+
+def _layout(mesh: TrialsMesh | None) -> tuple:
+    """(ranks, this rank) of the layout a fused call runs over."""
+    return (mesh.size, mesh.rank) if _distributed(mesh) else (1, 0)
+
+
+def _sum_(mesh: TrialsMesh | None, *accs: torch.Tensor):
+    """Device accumulators summed over the layout's ranks in place."""
+    if _distributed(mesh):
+        for x in accs:
+            all_sum_(mesh, x)
 
 
 def _share(keys: torch.Tensor, mesh: TrialsMesh | None) -> torch.Tensor:
@@ -146,8 +164,8 @@ def _sum_over_ranks(counts, mesh: TrialsMesh | None):
 
     for field in counts:
         walk(field)
-    si = iter(all_sum(mesh, torch.tensor(ints, dtype=torch.int64)).tolist())
-    sf = iter(all_sum(mesh, torch.tensor(floats, dtype=torch.float64))
+    si = iter(all_sum_(mesh, torch.tensor(ints, dtype=torch.int64)).tolist())
+    sf = iter(all_sum_(mesh, torch.tensor(floats, dtype=torch.float64))
               .tolist() if floats else [])
 
     def rebuild(x):
@@ -265,9 +283,8 @@ def cdl_decode_rounds(cfg: SimConfig, ebno_db: float, dec_keys, calib: dict,
 def eager_reason(cfg: SimConfig, mesh: TrialsMesh | None = None
                  ) -> str | None:
     """Why the calibrated CDL route runs eagerly on this configuration, or
-    None where it runs fused (the three cases of the module docstring)."""
-    if mesh is not None and mesh.size > 1:
-        return "a layout of several ranks"
+    None where it runs fused (the two cases of the module docstring; any
+    layout `mesh` runs fused)."""
     if not (cfg.ldpc.enabled and cfg.ldpc.family == "qc"):
         return "a code without QC structure"
     if nan_checks_enabled():
@@ -280,8 +297,6 @@ def nbf_eager_reason(cfg: SimConfig, mesh: TrialsMesh | None = None
     """Why the block-fading route runs eagerly, or None where it runs fused:
     the reasons of `eager_reason`, but an uncoded config (no code, no BP)
     runs fused."""
-    if mesh is not None and mesh.size > 1:
-        return "a layout of several ranks"
     if cfg.ldpc.enabled and cfg.ldpc.family != "qc":
         return "a code without QC structure"
     if nan_checks_enabled():
@@ -294,10 +309,13 @@ def _on(dev: torch.device):
             else contextlib.nullcontext())
 
 
-def _rounds(cfg: SimConfig, G: int, dev: torch.device) -> CdlRounds:
-    """The cached CdlRounds of (cfg, G, card, predict switch)."""
-    key = graph_key(cfg, G, dev, "cdl")
-    return cached_graphs(key, lambda: CdlRounds(key[1], G, key[3]))
+def _rounds(cfg: SimConfig, G: int, dev: torch.device,
+            mesh: TrialsMesh | None = None) -> CdlRounds:
+    """The cached CdlRounds of (cfg, G blocks a round on this rank, card,
+    predict switch, layout)."""
+    key = graph_key(cfg, G, dev, "cdl", _layout(mesh))
+    return cached_graphs(key, lambda: CdlRounds(key[1], G, key[3],
+                                                *key[5]))
 
 
 def _stage_row(g: CdlRounds, cfg: SimConfig, ebno_db):
@@ -309,17 +327,20 @@ def _stage_row(g: CdlRounds, cfg: SimConfig, ebno_db):
 
 def _unpack(g: CdlRounds, cal_acc, dec_acc, calib, Rc: int, Rd: int
             ) -> CdlSnrPoint:
-    """A point from packed counters (cal_acc (n_det,), dec_acc (5, n_det),
-    calib (n_det, 2, m)): tensors give tensor views, nested lists ints."""
+    """A point from packed counters summed over the ranks (cal_acc
+    (n_det,), dec_acc (5, n_det), calib (n_det, 2, m)): tensors give
+    tensor views, nested lists ints; the totals are the layout's."""
     def per(x):
         return {d: x[i] for i, d in enumerate(CDL_DETECTORS)}
 
+    W = g.ranks
     counts = CdlCounts(
-        bit_errors=per(dec_acc[0]), total_bits=Rd * g.code_bits,
-        info_errors=per(dec_acc[1]), total_info_bits=Rd * g.info_bits,
+        bit_errors=per(dec_acc[0]), total_bits=Rd * W * g.code_bits,
+        info_errors=per(dec_acc[1]), total_info_bits=Rd * W * g.info_bits,
         frame_errors=per(dec_acc[2]), ldpc_iter_sum=per(dec_acc[3]),
-        ldpc_unconverged=per(dec_acc[4]), ldpc_codewords=Rd * g.codewords)
-    return CdlSnrPoint(per(cal_acc), Rc * g.code_bits, counts,
+        ldpc_unconverged=per(dec_acc[4]),
+        ldpc_codewords=Rd * W * g.codewords)
+    return CdlSnrPoint(per(cal_acc), Rc * W * g.code_bits, counts,
                        {d: (c[0], c[1]) for d, c in per(calib).items()})
 
 
@@ -351,40 +372,41 @@ def make_sharded_cdl_steps(cfg: SimConfig, device=None,
             Rd decode rounds with the calibrators calib (detector -> (a,
             b), tensors or array-likes)
 
-    `row` is an Eb/N0 float or its EbnoRow. Fused (`eager_reason` None):
-    the CdlRounds bodies, CUDA graphs on the card, counters int64 0-d
-    tensors on the device, no host sync until the caller reads them;
+    `row` is an Eb/N0 float or its EbnoRow; with a `mesh` the keys are
+    global and each rank runs its share. Both routes sum the counters over
+    the ranks and leave the pairs on the rank (the JAX cal_step leaves
+    them sharded). Fused (`eager_reason` None): the CdlRounds bodies, CUDA
+    graphs on the card, counters int64 0-d tensors on the device, summed
+    over the ranks there, no host sync until the caller reads them;
     `timings`, when given, receives the detect and decode ms (CUDA events,
-    read at the end of the call). Eager (a `mesh` of several ranks, a code
-    without QC structure, debug_nan_checks): run_cdl_cal_blocks on this
-    rank's share of the keys, its counters summed over the ranks and its
-    pairs left on the rank (the JAX cal_step leaves them sharded), and
-    `cdl_decode_rounds`."""
+    read at the end of the call). Eager (a code without QC structure,
+    debug_nan_checks): run_cdl_cal_blocks and `cdl_decode_rounds`."""
     dev = resolve_device(device)
     reason = eager_reason(cfg, mesh)
 
     def cal_step(row, keys) -> CdlCalData:
-        keys = rng.as_keys(keys, dev)
+        keys = _share(rng.as_keys(keys, dev)[None], mesh)[0]
         if reason is not None:
-            out = run_cdl_cal_blocks(cfg, row, _share(keys[None], mesh)[0])
+            out = run_cdl_cal_blocks(cfg, row, keys)
             sums = _sum_over_ranks(CdlSnrPoint(_ints(out.bit_errors),
                                                out.total_bits, None, None),
                                    mesh)
             return out._replace(bit_errors=sums.cal_bit_errors,
                                 total_bits=sums.cal_total_bits)
         with _on(dev):
-            g = _rounds(cfg, keys.shape[0], dev)
+            g = _rounds(cfg, keys.shape[0], dev, mesh)
             _stage_row(g, cfg, row)
             g.keys.copy_(keys)
             cal = g.body("cal")          # captured (and warmed up) first
             g.cal_acc.zero_()
             cal.run()
+            errs = g.cal_acc.clone()
+            _sum_(mesh, errs)
             shape = (keys.shape[0], cfg.data_symbols_per_block,
                      cfg.channel.n_tx, cfg.ofdm.n_subcarriers, g.m)
             return CdlCalData(
-                bit_errors={d: g.cal_acc[i].clone()
-                            for i, d in enumerate(CDL_DETECTORS)},
-                total_bits=g.code_bits,
+                bit_errors={d: errs[i] for i, d in enumerate(CDL_DETECTORS)},
+                total_bits=g.ranks * g.code_bits,
                 llr={d: g.llr[i].reshape(shape).clone()
                      for i, d in enumerate(CDL_DETECTORS)},
                 bits=g.bits.reshape(shape).clone())
@@ -394,9 +416,9 @@ def make_sharded_cdl_steps(cfg: SimConfig, device=None,
         if reason is not None:
             return cdl_decode_rounds(cfg, row, keys, calib, dev, timings,
                                      mesh)
-        keys = rng.as_keys(keys, dev)
+        keys = _share(rng.as_keys(keys, dev), mesh)
         with _on(dev):
-            g = _rounds(cfg, keys.shape[1], dev)
+            g = _rounds(cfg, keys.shape[1], dev, mesh)
             _stage_row(g, cfg, row)
             g.calib.copy_(torch.stack([torch.stack([
                 torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -405,7 +427,9 @@ def make_sharded_cdl_steps(cfg: SimConfig, device=None,
             g.dec_acc.zero_()
             clock = EventClock(dev, timings)
             g.decode_rounds(keys, clock)
-            counts = _unpack(g, g.cal_acc, g.dec_acc.clone(), g.calib, 0,
+            dec = g.dec_acc.clone()
+            _sum_(mesh, dec)
+            counts = _unpack(g, g.cal_acc, dec, g.calib, 0,
                              keys.shape[0]).counts
             clock.flush()
             return counts
@@ -413,7 +437,8 @@ def make_sharded_cdl_steps(cfg: SimConfig, device=None,
     return cal_step, dec_step
 
 
-def make_fused_cdl_snr_step(cfg: SimConfig, device=None):
+def make_fused_cdl_snr_step(cfg: SimConfig, device=None,
+                            mesh: TrialsMesh | None = None):
     """One SNR point a call (JAX make_fused_cdl_snr_step): step(ebno_db,
     cal_keys (Rc, G, 2), dec_keys (Rd, G, 2), timings=None) ->
     CdlSnrPoint, the round counts set by the keys' shapes.
@@ -423,28 +448,35 @@ def make_fused_cdl_snr_step(cfg: SimConfig, device=None):
     the cal graph replayed Rc times (each round's pairs copied into slot r
     of the fit's stacked input), the fit graph of Rc once, the detect and
     decode graphs Rd times; the first call of a (cfg, G) captures them.
-    The point's counters are int64 0-d tensors on the card: nothing syncs
-    the host until the caller reads them (`timings`, when given, receives
-    each phase's ms from CUDA events and so syncs at the end). On the CPU
-    the same bodies run eagerly. Where `eager_reason` names a reason (a
-    code without QC structure, debug_nan_checks) the step is
-    `cdl_snr_point`."""
+    With a `mesh` the keys are global: each rank replays its own bodies on
+    its share of every round, the pairs of all ranks are gathered between
+    the cal rounds and the fit (every rank fits the same calibrators, as
+    `cdl_snr_point` over the ranks does) and the counters summed over the
+    ranks at the end, on the card. The point's counters are int64 0-d
+    tensors on the card: nothing syncs the host until the caller reads
+    them (`timings`, when given, receives each phase's ms from CUDA events
+    and so syncs at the end). On the CPU the same bodies run eagerly. Where
+    `eager_reason` names a reason (a code without QC structure,
+    debug_nan_checks) the step is `cdl_snr_point`."""
     dev = resolve_device(device)
-    reason = eager_reason(cfg)
+    reason = eager_reason(cfg, mesh)
 
     def step(ebno_db, cal_keys, dec_keys, timings: dict | None = None
              ) -> CdlSnrPoint:
         if reason is not None:
             return cdl_snr_point(cfg, ebno_db, cal_keys, dec_keys, dev,
-                                 timings)
-        ck, dk = rng.as_keys(cal_keys, dev), rng.as_keys(dec_keys, dev)
+                                 timings, mesh)
+        ck = _share(rng.as_keys(cal_keys, dev), mesh)
+        dk = _share(rng.as_keys(dec_keys, dev), mesh)
         with _on(dev):
-            g = _rounds(cfg, ck.shape[1], dev)
+            g = _rounds(cfg, ck.shape[1], dev, mesh)
             clock = EventClock(dev, timings)
             _stage_row(g, cfg, ebno_db)
-            g.point(ck, dk, clock)
-            pt = _unpack(g, g.cal_acc.clone(), g.dec_acc.clone(),
-                         g.calib.clone(), ck.shape[0], dk.shape[0])
+            g.point(ck, dk, clock, mesh)
+            cal, dec = g.cal_acc.clone(), g.dec_acc.clone()
+            _sum_(mesh, cal, dec)
+            pt = _unpack(g, cal, dec, g.calib.clone(), ck.shape[0],
+                         dk.shape[0])
             clock.flush()
             return pt
 
@@ -452,7 +484,8 @@ def make_fused_cdl_snr_step(cfg: SimConfig, device=None):
 
 
 def make_fused_cdl_grid(cfg: SimConfig, blocks_per_round: int,
-                        cal_rounds: int, dec_rounds: int, device=None):
+                        cal_rounds: int, dec_rounds: int, device=None,
+                        mesh: TrialsMesh | None = None):
     """The whole SNR grid of cfg.ebno_db in one call (JAX
     make_fused_cdl_grid): grid(root, timings=None) -> one host CdlSnrPoint
     per SNR point, counters Python ints, calibrators CPU tensors.
@@ -462,14 +495,17 @@ def make_fused_cdl_grid(cfg: SimConfig, blocks_per_round: int,
     with the calibration ids first (the per-SNR path's stream), stages
     every point's Eb/N0 row once, runs the step's replays for each point
     and copies its counters and calibrators into stacked (n_snr, ...)
-    device buffers, and reads those once, at the end. Equal to the per-SNR
-    step (and to `cdl_snr_point`) on the same keys, bit for bit. Where
-    `eager_reason` names a reason it loops `cdl_snr_point`."""
+    device buffers, and reads those once, at the end. With a `mesh` a round
+    holds blocks_per_round global blocks, each rank runs its share as the
+    step does, and the stacked counters are summed over the ranks once,
+    before that read. Equal to the per-SNR step (and to `cdl_snr_point`)
+    on the same keys, bit for bit. Where `eager_reason` names a reason it
+    loops `cdl_snr_point`."""
     dev = resolve_device(device)
     G, Rc, Rd = blocks_per_round, cal_rounds, dec_rounds
     ebnos = tuple(float(e) for e in np.asarray(cfg.ebno_db,
                                                dtype=np.float32))
-    reason = eager_reason(cfg)
+    reason = eager_reason(cfg, mesh)
 
     def grid(root, timings: dict | None = None) -> list:
         root = rng.as_keys(root, dev)
@@ -477,10 +513,11 @@ def make_fused_cdl_grid(cfg: SimConfig, blocks_per_round: int,
         keys = [rng.block_keys(root, jj, ids).reshape(Rc + Rd, G, 2)
                 for jj in range(len(ebnos))]
         if reason is not None:
-            return [cdl_snr_point(cfg, e, k[:Rc], k[Rc:], dev, timings)
-                    for e, k in zip(ebnos, keys)]
+            return [cdl_snr_point(cfg, e, k[:Rc], k[Rc:], dev, timings,
+                                  mesh) for e, k in zip(ebnos, keys)]
+        keys = [_share(k, mesh) for k in keys]
         with _on(dev):
-            g = _rounds(cfg, G, dev)
+            g = _rounds(cfg, G // _layout(mesh)[0], dev, mesh)
             rows = ebno_rows(cfg, ebnos, dev)
             n = len(ebnos)
             cal_out = g.cal_acc.new_zeros((n,) + g.cal_acc.shape)
@@ -489,10 +526,11 @@ def make_fused_cdl_grid(cfg: SimConfig, blocks_per_round: int,
             clock = EventClock(dev, timings)
             for jj in range(n):
                 g.row.copy_(rows[jj])
-                g.point(keys[jj][:Rc], keys[jj][Rc:], clock)
+                g.point(keys[jj][:Rc], keys[jj][Rc:], clock, mesh)
                 cal_out[jj].copy_(g.cal_acc)
                 dec_out[jj].copy_(g.dec_acc)
                 calib_out[jj].copy_(g.calib)
+            _sum_(mesh, cal_out, dec_out)
             cal_h, dec_h = cal_out.tolist(), dec_out.tolist()
             calib_h = calib_out.cpu()
             clock.flush()
@@ -548,9 +586,11 @@ def nbf_snr_point(cfg: SimConfig, ebno_db: float, keys, device=None,
     return _sum_over_ranks(_host_nbf(acc), mesh)
 
 
-def _nbf_rounds(cfg: SimConfig, G: int, dev: torch.device) -> NbfRounds:
-    """The cached NbfRounds of (cfg, G, card, predict switch)."""
-    key = graph_key(cfg, G, dev, "nbf")
+def _nbf_rounds(cfg: SimConfig, G: int, dev: torch.device,
+                mesh: TrialsMesh | None = None) -> NbfRounds:
+    """The cached NbfRounds of (cfg, G blocks a round on this rank, card,
+    predict switch, layout)."""
+    key = graph_key(cfg, G, dev, "nbf", _layout(mesh))
     return cached_graphs(key, lambda: NbfRounds(key[1], G, key[3]))
 
 
@@ -568,21 +608,25 @@ def make_sharded_nbf_scan_step(cfg: SimConfig, device=None,
     Fused (`nbf_eager_reason` None): the Eb/N0's row and each round's keys
     are copied into the NbfRounds buffers (device to device) and the body
     of the Eb/N0's BP cap replayed R times; the first call of a (cfg, G, cap)
-    captures it. The counters are int64 (capacity float64) tensors on the
-    card: nothing syncs the host until the caller reads them. On the CPU
-    the same body runs eagerly. Eager: `nbf_snr_point` (with a `mesh`, on
-    this rank's share, the counters summed over the ranks)."""
+    captures it. With a `mesh` the keys are global: each rank replays its
+    own body on its share of every round, and after the rounds the
+    accumulators are summed over the ranks on the card. The counters are
+    int64 (capacity float64) tensors on the card: nothing syncs the host
+    until the caller reads them. On the CPU the same body runs eagerly.
+    Eager: `nbf_snr_point` (with a `mesh`, on this rank's share, the
+    counters summed over the ranks)."""
     dev = resolve_device(device)
     reason = nbf_eager_reason(cfg, mesh)
 
     def step(ebno_db: float, keys) -> NbfCounts:
         if reason is not None:
             return nbf_snr_point(cfg, ebno_db, keys, dev, mesh=mesh)
-        keys = rng.as_keys(keys, dev)
+        keys = _share(rng.as_keys(keys, dev), mesh)
         with _on(dev):
-            g = _nbf_rounds(cfg, keys.shape[1], dev)
+            g = _nbf_rounds(cfg, keys.shape[1], dev, mesh)
             _stage_row(g, cfg, ebno_db)
             g.rounds(keys, _nbf_cap(cfg, ebno_db))
+            _sum_(mesh, *g.accs)
             return g.counts()
 
     return step
@@ -611,10 +655,12 @@ def make_fused_nbf_grid(cfg: SimConfig, blocks_per_round: int, rounds: int,
     stream), stages every point's Eb/N0 row once, picks each point's BP
     cap on the host from cfg.ebno_db, replays the rounds and copies the
     point's counters into stacked (n_snr, ...) device buffers, and reads
-    those once, at the end. Equal to the per-SNR scan step (and to
-    `nbf_snr_point`) on the same keys, bit for bit. Where `nbf_eager_reason`
-    names a reason it loops `nbf_snr_point` (with a `mesh`, each rank on its
-    share of the global rounds of blocks_per_round blocks)."""
+    those once, at the end. With a `mesh` each rank runs its share of the
+    global rounds of blocks_per_round blocks, and the stacked counters are
+    summed over the ranks once, before that read. Equal to the per-SNR
+    scan step (and to `nbf_snr_point`) on the same keys, bit for bit. Where
+    `nbf_eager_reason` names a reason it loops `nbf_snr_point` (with a
+    `mesh`, over the ranks too)."""
     dev = resolve_device(device)
     G, R = blocks_per_round, rounds
     ebnos = tuple(float(e) for e in np.asarray(cfg.ebno_db,
@@ -629,16 +675,17 @@ def make_fused_nbf_grid(cfg: SimConfig, blocks_per_round: int, rounds: int,
         if reason is not None:
             return [nbf_snr_point(cfg, e, k, dev, mesh=mesh)
                     for e, k in zip(ebnos, keys)]
+        keys = [_share(k, mesh) for k in keys]
         with _on(dev):
-            g = _nbf_rounds(cfg, G, dev)
+            g = _nbf_rounds(cfg, G // _layout(mesh)[0], dev, mesh)
             rows = ebno_rows(cfg, ebnos, dev)
-            bufs = (g.det_acc, g.totals, g.capacity_sum, g.cond_hist)
-            outs = [b.new_zeros((len(ebnos),) + b.shape) for b in bufs]
+            outs = [b.new_zeros((len(ebnos),) + b.shape) for b in g.accs]
             for jj, e in enumerate(ebnos):
                 g.row.copy_(rows[jj])
                 g.rounds(keys[jj], _nbf_cap(cfg, e))
-                for o, b in zip(outs, bufs):
+                for o, b in zip(outs, g.accs):
                     o[jj].copy_(b)
+            _sum_(mesh, *outs)
             det, tot, cap = (o.tolist() for o in outs[:3])
             hist = outs[3].cpu().numpy()
         return [g.counts(det[j], tot[j], cap[j], hist[j])
@@ -754,8 +801,9 @@ def run_nbf_curve(cfg: SimConfig, blocks_per_snr: int,
     (`make_sharded_nbf_scan_step`) a call of `rounds_per_call` rounds; a
     `step_factory(cfg, device=..., mesh=...)` (the fault-injection hook)
     gives a step of the legacy signature, step(ebno_db, keys (G, 2)), one
-    round a call. Where `nbf_eager_reason` names a reason the builders run
-    `nbf_snr_point`. Every route gives the same counters.
+    round a call; over the ranks of a `mesh` as on one. Where
+    `nbf_eager_reason` names a reason the builders run `nbf_snr_point`.
+    Every route gives the same counters.
 
     adaptive_min_errors: after the base budget at an SNR point, keep adding
     rounds through the scan step, continuing the block ids, until EVERY
@@ -856,11 +904,11 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
     The route, as the JAX package picks it: without a checkpoint the whole
     grid in one call (`make_fused_cdl_grid`), with one the per-SNR step
     (`make_fused_cdl_snr_step`), the top-up through `dec_step`
-    (`make_sharded_cdl_steps`); where `eager_reason` names a reason (a
-    `mesh` of several ranks, a code without QC structure, debug_nan_checks)
-    `cdl_snr_point` and `cdl_decode_rounds`, the decode rounds past ~6e8
-    bytes of round-stacked LLRs a detector in extra calls of
-    `rounds_per_call` rounds. Both routes give the same results.
+    (`make_sharded_cdl_steps`), over the ranks of a `mesh` as on one;
+    where `eager_reason` names a reason (a code without QC structure,
+    debug_nan_checks) `cdl_snr_point` and `cdl_decode_rounds`, the decode
+    rounds past ~6e8 bytes of round-stacked LLRs a detector in extra calls
+    of `rounds_per_call` rounds. Both routes give the same results.
 
     adaptive_min_errors: after the base budget, keep running decode rounds
     at an SNR point until every detector has at least this many failed
@@ -905,12 +953,13 @@ def run_cdl_curve(cfg: SimConfig, blocks_per_snr: int,
     grid_pts = None
     if fused:
         if checkpoint is None:
-            grid = make_fused_cdl_grid(cfg, G, cal_rounds, rd_first, dev)
+            grid = make_fused_cdl_grid(cfg, G, cal_rounds, rd_first, dev,
+                                       mesh)
             grid_pts = _call_with_retry(grid, (root, timings),
                                         progress=progress, retries=retries)
         else:
-            step = make_fused_cdl_snr_step(cfg, dev)
-        _, dec_step = make_sharded_cdl_steps(cfg, dev)
+            step = make_fused_cdl_snr_step(cfg, dev, mesh)
+        _, dec_step = make_sharded_cdl_steps(cfg, dev, mesh)
 
     ebnos = np.asarray(cfg.ebno_db, dtype=np.float32)
     results = []

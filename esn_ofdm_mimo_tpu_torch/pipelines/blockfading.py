@@ -207,6 +207,10 @@ class NbfRounds:
     "esn_fixed" only with a fixed training Eb/N0), totals
     (6,) int64 (NBF_TOTALS), capacity_sum float64, cond_hist (50,) int64.
 
+    The counters are this rank's where a layout of several ranks runs the
+    rounds: the caller sums `accs` over the ranks after a call's rounds,
+    outside the graphs (parallel/montecarlo.py).
+
     There is one body for each BP cap (max_iter and 2 * max_iter; None for
     an uncoded config), made on first use. On the card it is a CUDA graph
     captured after one eager call on a side stream and replayed; on the CPU
@@ -226,6 +230,8 @@ class NbfRounds:
         self.totals = zeros(len(NBF_TOTALS))
         self.capacity_sum = zeros(dtype=torch.float64)
         self.cond_hist = zeros(len(COND_BINS) + 1)
+        self.accs = (self.det_acc, self.totals, self.capacity_sum,
+                     self.cond_hist)
         self.bodies = {}
 
     def body(self, cap: int | None) -> Body:
@@ -252,8 +258,7 @@ class NbfRounds:
         self.cond_hist.add_(c.cond_hist)
 
     def zero(self):
-        for t in (self.det_acc, self.totals, self.capacity_sum,
-                  self.cond_hist):
+        for t in self.accs:
             t.zero_()
 
     def rounds(self, keys: torch.Tensor, cap: int | None):
@@ -273,9 +278,8 @@ class NbfRounds:
         accumulators: tensors give tensor views, host values (nested lists,
         ints, a float, a numpy histogram) give host values."""
         if det_acc is None:
-            det_acc, totals = self.det_acc.clone(), self.totals.clone()
-            capacity_sum = self.capacity_sum.clone()
-            cond_hist = self.cond_hist.clone()
+            det_acc, totals, capacity_sum, cond_hist = (
+                t.clone() for t in self.accs)
 
         def per(j):
             return {d: det_acc[j][i] for i, d in enumerate(self.dets)}

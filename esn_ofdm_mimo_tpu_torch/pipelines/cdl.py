@@ -332,32 +332,41 @@ DEC_COUNTERS = ("bit_errors", "info_errors", "frame_errors", "iter_sum",
 
 class CdlRounds:
     """The calibrated point's bodies for rounds of G blocks on one device
-    (the fused CDL route, parallel/montecarlo.py). Each body reads and
-    writes only the buffers below, made before any capture:
+    (the fused CDL route, parallel/montecarlo.py), this rank's G of every
+    round of W G global blocks where a layout of W ranks runs the point.
+    Each body reads and writes only the buffers below, made before any
+    capture:
 
         cal     row, keys -> cal_acc += uncoded errors; llr, bits = the
                 round's raw (llr, bit) pairs, (S, m) a detector
-        fit     the pairs stacked over Rc rounds -> calib (a, b) a
-                detector (`fit_calibrators`); one body for each Rc, since
-                the max_fit_samples stride depends on it
+        fit     the pairs of every rank stacked over Rc rounds -> calib
+                (a, b) a detector (`fit_calibrators`), in global block
+                order: round, then rank, then the rank's blocks; one body
+                for each Rc, since the max_fit_samples stride depends on
+                the global count
         detect  row, keys, calib -> dec_acc[bit_errors] += uncoded errors;
                 Lc, u = the round's calibrated LLRs and info bits
         decode  Lc, u -> dec_acc[info/frame errors, iteration sum,
                 unconverged] += K1's counts (`cdl_decode_counters`)
 
-    Counters are int64 on the device, detectors in CDL_DETECTORS order. On
-    the card each body is a CUDA graph captured on first use (after one
+    Counters are int64 on the device, detectors in CDL_DETECTORS order,
+    this rank's: the caller sums them over the ranks. The pairs are
+    gathered between the cal rounds and the fit, outside the graphs
+    (`point`), so every rank fits the same calibrators. On the card each
+    body is a CUDA graph captured on first use (after one
     eager call on a side stream, which warms up every first-use host step,
     K1's code tensors among them) and replayed; on the CPU it runs. A
     decode round is detect then decode: BP decodes each codeword alone,
     with its own exit, so decoding each round alone counts what one decode
     of the round-stacked LLRs counts."""
 
-    def __init__(self, cfg: SimConfig, G: int, dev: torch.device):
+    def __init__(self, cfg: SimConfig, G: int, dev: torch.device,
+                 ranks: int = 1, rank: int = 0):
         N, m = cfg.ofdm.n_subcarriers, cfg.ofdm.bits_per_symbol
         code = make_code(cfg.ldpc, N * m)
         n_det = len(CDL_DETECTORS)
         self.cfg, self.G, self.dev, self.m = cfg, G, dev, m
+        self.ranks, self.rank = ranks, rank
         ncw = G * cfg.data_symbols_per_block * cfg.channel.n_tx
         self.code_bits = ncw * code.n             # code bits of a round
         self.info_bits, self.codewords = ncw * code.k, ncw
@@ -387,15 +396,29 @@ class CdlRounds:
             self.bodies[key] = Body(fn, f"the CDL {name} body", self.dev)
         return self.bodies[key]
 
-    def stack(self, Rc: int):
-        """(llr (n_det, Rc, S, m), bits (Rc, S, m)): the pairs of Rc
-        calibration rounds, the fit's input."""
+    def gathered(self, Rc: int):
+        """(llr (W, n_det, Rc, S, m), bits (W, Rc, S, m)): every rank's
+        pairs of Rc calibration rounds in rank order, the fit's input."""
         if Rc not in self.stacks:
             self.stacks[Rc] = (
-                self.llr.new_zeros((self.llr.shape[0], Rc)
+                self.llr.new_zeros((self.ranks, self.llr.shape[0], Rc)
                                    + self.llr.shape[1:]),
-                self.bits.new_zeros((Rc,) + self.bits.shape))
+                self.bits.new_zeros((self.ranks, Rc) + self.bits.shape))
         return self.stacks[Rc]
+
+    def stack(self, Rc: int):
+        """(llr (n_det, Rc, S, m), bits (Rc, S, m)): this rank's pairs of Rc
+        calibration rounds, its slot of `gathered`."""
+        return tuple(x[self.rank] for x in self.gathered(Rc))
+
+    def gather(self, Rc: int, mesh=None):
+        """Every rank's stack of Rc rounds into `gathered` (the layout
+        `mesh`, parallel/mesh.py; None: one process, nothing to gather)."""
+        if mesh is None:
+            return
+        from ..parallel.mesh import all_gather_into  # parallel imports this
+        for x in self.gathered(Rc):
+            all_gather_into(mesh, x, x[self.rank])
 
     def _calib(self) -> dict:
         return {d: (self.calib[i, 0], self.calib[i, 1])
@@ -409,13 +432,15 @@ class CdlRounds:
         self.bits.copy_(out.bits.reshape(-1, self.m))
 
     def _fit_fn(self, Rc: int):
-        llr, bits = self.stack(Rc)
+        llr, bits = self.gathered(Rc)
 
         def fit():
+            # global block order: (W, ..., Rc, S, m) -> (..., Rc, W, S, m);
+            # one rank's is a view, as its stack is
+            x = llr.permute(1, 2, 0, 3, 4).reshape(llr.shape[1], -1, self.m)
             calib = fit_calibrators(
-                self.cfg, {d: llr[i].reshape(-1, self.m)
-                           for i, d in enumerate(CDL_DETECTORS)},
-                bits.reshape(-1, self.m))
+                self.cfg, {d: x[i] for i, d in enumerate(CDL_DETECTORS)},
+                bits.transpose(0, 1).reshape(-1, self.m))
             for i, d in enumerate(CDL_DETECTORS):
                 self.calib[i, 0].copy_(calib[d][0])
                 self.calib[i, 1].copy_(calib[d][1])
@@ -471,11 +496,13 @@ class CdlRounds:
                 clock.mark("decode")
 
     def point(self, cal_keys: torch.Tensor, dec_keys: torch.Tensor,
-              clock=None):
-        """One SNR point at the Eb/N0 in row: Rc calibration rounds, the
-        fit, Rd decode rounds; the results in cal_acc, dec_acc and calib.
-        The bodies of a first call are captured before the run, so their
-        warm-up calls leave no trace in the results."""
+              clock=None, mesh=None):
+        """One SNR point at the Eb/N0 in row: Rc calibration rounds of this
+        rank's keys, the pairs gathered over the ranks of `mesh` (None: one
+        process), the fit, Rd decode rounds; the results in cal_acc,
+        dec_acc (this rank's counters) and calib. The bodies of a first call
+        are captured before the run, so their warm-up calls leave no trace
+        in the results."""
         Rc = cal_keys.shape[0]
         self.keys.copy_(cal_keys[0])
         self.body("cal")
@@ -484,6 +511,7 @@ class CdlRounds:
         self.cal_acc.zero_()
         self.dec_acc.zero_()
         self.cal_rounds(cal_keys, clock)
+        self.gather(Rc, mesh)
         self.body("fit", Rc).run()
         if clock is not None:
             clock.mark("fit")

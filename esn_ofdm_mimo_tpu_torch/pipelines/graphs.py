@@ -125,13 +125,17 @@ _CACHE: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
 _CACHE_SIZE = 4
 
 
-def graph_key(cfg: SimConfig, G: int, dev: torch.device, kind: str) -> tuple:
+def graph_key(cfg: SimConfig, G: int, dev: torch.device, kind: str,
+              layout: tuple = (1, 0)) -> tuple:
     """The cache key of a graph set: (kind, cfg without its Eb/N0 grid,
-    which the bodies read from their row buffer, blocks a round, card, the
-    predict switch ESN_TPU_PREDICT_READOUT, which picks K2 or K4). A set
-    is made from its key's cfg and card."""
+    which the bodies read from their row buffer, blocks a round on this
+    rank, card, the predict switch ESN_TPU_PREDICT_READOUT, which picks K2
+    or K4, the layout (ranks W, this rank): a rank's set of G blocks fits
+    the pairs of W G blocks). A set is made from its key's cfg, card and
+    layout."""
     return (kind, dataclasses.replace(cfg, ebno_db=()), int(G), _card(dev),
-            os.environ.get("ESN_TPU_PREDICT_READOUT"))
+            os.environ.get("ESN_TPU_PREDICT_READOUT"),
+            tuple(int(v) for v in layout))
 
 
 def cached_graphs(key: tuple, make):
