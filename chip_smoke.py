@@ -153,6 +153,12 @@ nvcc per source, all started together; sm_90a), then:
        Python) and one under set_sync_debug_mode("error"); the capture's
        ms, the pool's MiB, the best replayed wall against the eager one
        and e2e decoded symbols/s (8 x 128 x 75 / wall, bench.py's);
+       [bench] bench_torch.py's main in this process at bench.py's full
+       shape (64 chunks of 128 blocks, 2 + 6 rounds, 5 timed calls each),
+       replaying the chunk and the point that [cal chunks] and [cdl snr
+       step] captured: its one stdout line (logged) has bench.py's keys,
+       value and e2e_decoded_symbols_per_s in (0, 1e9), every mfu_* in
+       (0, 1), every bp_unconverged_frac in [0, 1]; no speed gate;
        [cdl grid] make_fused_cdl_grid at 9, 12 and 15 dB, 128 blocks, 1 +
        1 rounds: identical to the per-SNR loops of the fused step and of
        the eager cdl_snr_point, the wall of each, launches from a trace;
@@ -1920,6 +1926,45 @@ def main() -> None:
          f"{syms_s / wall_eager_s:.1f} | launches in the trace of one "
          f"replayed call {la_s} | {smi}")
 
+    # [bench]: bench_torch.main in this process at its defaults (bench.py's
+    # shapes), after [cal chunks] and [cdl snr step] captured the same
+    # chunk and point: the line's keys against bench.py's, its numbers in
+    # range, and the same graph sets in the cache after it (the bench
+    # replays what was captured; its timers also raise on a recapture)
+    import bench_torch
+    chunk_g = cdl_pipe.cal_graph(cfg, 12.0, keys_chunks[0])
+    rounds_g = tmc._rounds(cfg, G_main, dev)
+    out_b = io.StringIO()
+    t0_b = time.perf_counter()
+    with contextlib.redirect_stdout(out_b):
+        bench_torch.main([])
+    wall_b = time.perf_counter() - t0_b
+    lines_b = out_b.getvalue().splitlines()
+    _check(len(lines_b) == 1,
+           f"bench: {len(lines_b)} stdout lines, expected one: {lines_b}")
+    line_b = json.loads(lines_b[0])
+    _log(f"[bench] {lines_b[0]}")
+    want_keys = {"metric", "value", "unit", "vs_baseline",
+                 "e2e_decoded_symbols_per_s", "mfu_detect", "mfu_e2e",
+                 "mfu_decode_useful", "bp_unconverged_frac",
+                 "flops_per_detected_symbol", "detect_spread_symbols_per_s",
+                 "e2e_spread_symbols_per_s", "baseline_pinned"}
+    _check(set(line_b) == want_keys,
+           f"bench: keys {sorted(line_b)}, expected bench.py's")
+    _check(all(0 < line_b[k] < 1e9
+               for k in ("value", "e2e_decoded_symbols_per_s"))
+           and all(0 < line_b[k] < 1 for k in line_b if k.startswith("mfu_"))
+           and all(0 <= v <= 1
+                   for v in line_b["bp_unconverged_frac"].values()),
+           f"bench: a number out of range: {line_b}")
+    _check(cdl_pipe.cal_graph(cfg, 12.0, keys_chunks[0]) is chunk_g
+           and tmc._rounds(cfg, G_main, dev) is rounds_g,
+           "bench: the chunk or the point was captured again")
+    _log(f"[bench] bench_torch.main() in process, {G_main} blocks, 64 "
+         f"chunks and {Rc_s} + {Rd_s} rounds, 5 timed calls each: wall "
+         f"{wall_b:.1f} s, the cached chunk and point replayed (no "
+         f"capture) | {smi}")
+
     # [cdl grid]: make_fused_cdl_grid at 9/12/15 dB, 128 blocks, 1 cal + 1
     # decode round, against the per-SNR loops (the fused step and the eager
     # cdl_snr_point) on the same keys: identical; the wall of each
@@ -3246,23 +3291,19 @@ def _dist_child(out: str) -> None:
         walls[name] = round(1e3 * (time.perf_counter() - t0), 3)
         return r
 
-    def host(pt):
-        """A CDL point with its calibrators on the CPU."""
-        return pt._replace(calib={d: (a.cpu(), b.cpu())
-                                  for d, (a, b) in pt.calib.items()})
-
     for mode, (cfg, nbf) in inp["modes"].items():
         step = tmc.make_fused_cdl_snr_step(cfg, dev, mesh)
         grid = tmc.make_fused_cdl_grid(cfg, G_c, 1, 1, dev, mesh)
         scan = tmc.make_sharded_nbf_scan_step(nbf, dev, mesh)
-        res["cdl step", mode] = timed(f"cdl step {mode}", lambda: host(
-            tmc._host_point(step(12.0, kc[:1], kc[1:]))))
+        res["cdl step", mode] = timed(
+            f"cdl step {mode}",
+            lambda: tmc.host_point(step(12.0, kc[:1], kc[1:])))
         res["cdl grid", mode] = timed(f"cdl grid {mode}",
                                       lambda: grid(inp["root"])[0])
         res["nbf scan", mode] = timed(f"nbf scan {mode}",
                                       lambda: tmc._host_nbf(scan(12.0, kn)))
         if mode == "batch":
-            res["cdl eager"] = timed("cdl eager", lambda: host(
+            res["cdl eager"] = timed("cdl eager", lambda: tmc.host_point(
                 tmc.cdl_snr_point(cfg, 12.0, kc[:1], kc[1:], dev, mesh=mesh)))
             res["nbf eager"] = timed("nbf eager", lambda: tmc.nbf_snr_point(
                 nbf, 12.0, kn, dev, mesh=mesh))

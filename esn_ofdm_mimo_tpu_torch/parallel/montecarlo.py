@@ -361,6 +361,15 @@ def _host_point(pt: CdlSnrPoint) -> CdlSnrPoint:
         counts=_host_counts(pt.counts))
 
 
+def host_point(pt: CdlSnrPoint) -> CdlSnrPoint:
+    """Every field of a point on the host: counters as Python ints, the
+    calibrators as CPU tensors. Reading a fused step's point this way waits
+    for all of its work on the card."""
+    return _host_point(pt)._replace(
+        calib={d: (torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
+               for d, (a, b) in pt.calib.items()})
+
+
 def make_sharded_cdl_steps(cfg: SimConfig, device=None,
                            mesh: TrialsMesh | None = None):
     """(cal_step, dec_step) of the calibrated CDL pipeline (JAX

@@ -13,7 +13,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "esn_ofdm_mimo_tpu_torch"
 _PORT_FILES = sorted(p for p in PORT.rglob("*")
                      if p.suffix in (".py", ".cu", ".cuh")) + [
-                         ROOT / "chip_smoke.py",
+                         ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
                          ROOT / "tools" / "bench_micro_torch.py"]
 
 
@@ -48,6 +48,8 @@ def test_port_imports_with_jax_blocked():
             "esn_ofdm_mimo_tpu_torch.utils.flops\n"
             "import runpy\n"
             "runpy.run_path('tools/bench_micro_torch.py', run_name='tool')\n"
+            "runpy.run_path('bench_torch.py', run_name='bench_torch')\n"
+            "assert 'bench' not in sys.modules\n"
             "import torch\n"
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
             "assert not torch.backends.cudnn.allow_tf32\n"
