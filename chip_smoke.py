@@ -6,10 +6,20 @@
 (`chip_smoke.py --dist-child <dir>` is one rank of [dist fused 2 ranks],
 started by the run itself.)
 
-Builds the port's seven CUDA kernels from esn_ofdm_mimo_tpu_torch/csrc/ (one
-nvcc per source, all started together; sm_90a), then:
+Builds the port's eight CUDA kernel sources from esn_ofdm_mimo_tpu_torch/csrc/
+(one nvcc per source, all started together; sm_90a), then:
 
   1. prints the card (nvidia-smi name and power limit) and the build time;
+     [rng] the threefry kernel (csrc/threefry.cu: jax.random's
+     threefry2x32 and the draws on it) against its plain version
+     (utils/rng.py `*_plain`) at the main paths' shapes: fold_in and split
+     of 128 block keys, the bits, a uniform on [0, 2 pi) and a normal at
+     the flagship round's AWGN shape (128 blocks x D x n_rx x (N +
+     cp_len) = 128 x 74 x 8 x 135), its Bernoulli info bits (128 x D x
+     n_tx x code.k = 128 x 74 x 4 x 259) and a normal at the mimo_4x8_nbf
+     round's AWGN shape (128 x 18 x 8 x 519): identical, the normals
+     within 2 ulp with the count of differing draws printed; ms, plain ms
+     and bound of each;
   2. [K1 rule] the BP kernels' sum-product check rule on its own, on the
      card and in its plain version, against float64 on a log-spaced grid
      (each value within 1e-5 relative or 5e-7 absolute);
@@ -104,7 +114,7 @@ nvcc per source, all started together; sm_90a), then:
        [nbf main] `nbf_snr_point` on mimo_4x8_nbf (N = 512, 4x8, n_res = 600,
        T = 522, D = 18, n = 2048), 128 blocks, one round at 3 dB (doubled
        BP cap) and at 12 dB, five detectors: K1, K2, K3 and the SVD kernel
-       launched; the 12 dB analytics equal the SVD kernel's on [svd 8x4]'s
+       launched, the threefry kernel 33 times (a launch a draw); the 12 dB analytics equal the SVD kernel's on [svd 8x4]'s
        H, printed beside the library SVD's (full rank, histogram L1,
        capacity);
        [nbf uncoded] the 12 dB point with ldpc.enabled=False on the same
@@ -112,7 +122,8 @@ nvcc per source, all started together; sm_90a), then:
        every uncoded BER within 10% of the coded run's;
        [main] `cdl_snr_point` on the flagship mimo_4x8_cdl (N = 128, 4x8,
        n_res = 300, D = 74, n = 512), 128 blocks, one calibration and one
-       decode round at 12 dB: K1, K2 and K3 launched;
+       decode round at 12 dB: K1, K2 and K3 launched, the threefry kernel
+       52 times;
        [main grouped] the same flagship point with
        ESN_TPU_PREDICT_READOUT=grouped: K4 launched;
        [main newton] the same point with CalibConfig(fit_method="newton"):
@@ -219,7 +230,8 @@ nvcc per source, all started together; sm_90a), then:
        classify.main, at --fast --batch 64 --variant wide (system model 1
        at full width: 5G grid of 64 x 14 REs, 4 x 8 spatial CDL-B, NR LDPC
        k = 1,536 / E = 3,072, 196,608 symbols an SNR at 0, 10 and 20 dB,
-       the wide zoo, 60 epochs): no kernel launched; the traditional
+       the wide zoo, 60 epochs): no kernel but the threefry kernel
+       launched, 156 times (52 an SNR); the traditional
        demapper's SER in (0.010, 0.028) at 10 dB and (0.33, 0.43) at 0
        dB, the ELM within 0.01 of it at 10 dB, every model below 0.5 at 20
        dB, the parameter counts exact, E|z|^2 within 0.05 of 1 on the 10
@@ -291,7 +303,8 @@ before the final line. Without CUDA it exits 1 and prints no result.
 --profile adds one more run of the flagship and the 12 dB NBF main paths,
 of [cal chunks]'s 16 replays and of one replayed [cdl snr step] and [nbf
 step] call under torch.profiler and prints the device time by kernel and the device's busy
-share of each run's wall time.
+share of each run's wall time, the threefry kernel's launches and the
+int64 elementwise launches left.
 """
 from __future__ import annotations
 
@@ -401,6 +414,7 @@ def main() -> None:
                 (esn_cuda, "launches_grouped", "esn_predict_grouped"),
                 (esn_cuda, "launches_ablate", "esn_predict_ablate"),
                 (analytics, "launches", "svdvals_small"),
+                (rng, "launches", "threefry"),
                 # not a kernel: the plain BP of Gallager and pyldpc codes
                 (bp_graph, "graph_decodes", "graph_decode"))
 
@@ -462,6 +476,116 @@ def main() -> None:
     kernels = {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
+
+    # ---- [rng]: the threefry kernel (csrc/threefry.cu) --------------------
+    # against its plain version (utils/rng.py *_plain) at the shapes the
+    # main paths draw: keys, bits and uniforms at the flagship round's AWGN
+    # shape, that AWGN's normal (ops/channel.py:awgn on
+    # split(fold_in(block keys, _K_DNOISE))[..., 0, :], a strided view),
+    # the round's LDPC info bits and the mimo_4x8_nbf round's AWGN normal.
+    # Gates: identical; a normal within 2 ulp (log1pf and sqrtf rounding as
+    # torch's CUDA log1p and sqrt make it identical), the differing draws
+    # counted. Bound: the larger of the bytes (the keys read once, the
+    # output written once) over the HBM rate and the integer operations
+    # over 132 SMs x 64 int32 lanes x the SM's maximum clock (nvidia-smi)
+    import numpy as np
+
+    from esn_ofdm_mimo_tpu_torch.pipelines.common import _K_DBITS, _K_DNOISE
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    int_ops_per_s = 132 * 64 * clock_mhz * 1e6
+
+    def rng_bound(mode: str, n: int, rows: int):
+        """(ms, what bounds it) of n draws of `mode` from `rows` keys, in
+        the fewest int32 instructions the work needs. Once a key: the
+        extended key word k0 ^ k1 ^ 0x1BD11BDA (one three-input LOP3).
+        Once an element, 67: x1's counter add, 20 rounds of an add, a
+        rotation and an xor, the 5 injections into x1 (word + key + round
+        in one IADD3) and the last into x0 (x0's counter add and its
+        other 4 injections fold into the next round's add, an IADD3); then
+        the epilogue (bits: an xor; the float modes: the xor, and the
+        shift and the or as one shift-and-add, their bits being disjoint).
+        fp32 operations: the uniform's 6 (subtract, widen, multiply, add,
+        round, clamp), the normal's 25 more (the erfinv: log1p counted as
+        one, 8 multiply-adds as 16), Bernoulli's compare. The float64
+        steps are counted at the fp32 rate: a lower bound."""
+        out_b = {"hash": 16, "bits": 8, "uniform": 4, "normal": 4,
+                 "bernoulli": 1}[mode]
+        n_int = rows + n * (67 + {"hash": 0, "bits": 1}.get(mode, 2))
+        n_fp = n * {"uniform": 6, "normal": 31, "bernoulli": 7}.get(mode, 0)
+        t = {"bytes": (16 * rows + out_b * n) / _HBM_BYTES_PER_S,
+             "operations": max(n_int / int_ops_per_s,
+                               n_fp / _FP32_FLOP_PER_S)}
+        by = max(t, key=t.get)
+        return 1e3 * t[by], by
+
+    def ulps(a, b):
+        return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+    bk_r = rng.block_keys(rng.prng_key(0), 1, torch.arange(128)).to(dev)
+    kri_r = rng.split(rng.fold_in(bk_r, _K_DNOISE))[..., 0, :]
+    shape_c = (cfg.data_symbols_per_block, cfg.channel.n_rx,
+               cfg.ofdm.n_subcarriers + cfg.ofdm.cp_len)
+    shape_n = (nbf.data_symbols_per_block, nbf.channel.n_rx,
+               nbf.ofdm.n_subcarriers + nbf.ofdm.cp_len)
+    code_c = make_code(cfg.ldpc, cfg.ofdm.n_subcarriers
+                       * cfg.ofdm.bits_per_symbol)
+    shape_b = (cfg.data_symbols_per_block, cfg.channel.n_tx, code_c.k)
+    kb_r = rng.fold_in(bk_r, _K_DBITS)
+    rng_cases = (
+        ("fold_in", "hash", rng.fold_in, (bk_r, _K_DNOISE)),
+        ("split", "hash", rng.split, (bk_r,)),
+        ("bits", "bits", rng.random_bits, (kri_r, shape_c)),
+        ("uniform [0, 2 pi)", "uniform", rng.uniform,
+         (kri_r, shape_c, 0.0, 2 * np.pi)),
+        ("normal flagship AWGN", "normal", rng.normal, (kri_r, shape_c)),
+        ("bernoulli flagship info bits", "bernoulli", rng.bernoulli,
+         (kb_r, 0.5, shape_b)),
+        ("normal nbf AWGN", "normal", rng.normal, (kri_r, shape_n)))
+    rng_err = 0.0
+    for what, mode, fn, args in rng_cases:
+        plain = getattr(rng, fn.__name__ + "_plain")
+        got, want = fn(*args), plain(*args)
+        sync()
+        _check(got.shape == want.shape and got.dtype == want.dtype,
+               f"rng {what}: {got.dtype} {tuple(got.shape)} against plain "
+               f"{want.dtype} {tuple(want.shape)}")
+        n_diff, max_ulp = int((got != want).sum()), 0
+        if mode == "normal":
+            _check(bool(torch.isfinite(got).all()),
+                   f"rng {what}: a normal is not finite")
+            max_ulp = int(ulps(got, want).max())
+            _check(max_ulp <= 2, f"rng {what}: {n_diff} normals differ from "
+                                 f"plain, up to {max_ulp} ulp (at most 2)")
+            rng_err = max(rng_err, float((got - want).abs().max()))
+        else:
+            _check(n_diff == 0, f"rng {what}: {n_diff} of {got.numel()} "
+                                f"elements differ from the plain version")
+        n = got.numel() // (2 if mode == "hash" else 1)
+        rows = bk_r.shape[0]
+        ms = cuda_ms(lambda: fn(*args), 20)
+        plain_ms = cuda_ms(lambda: plain(*args), 3)
+        b_ms, b_by = rng_bound(mode, n, rows)
+        _log(f"[rng {what}] {tuple(got.shape)} {str(got.dtype)[6:]} from "
+             f"{rows} keys: identical to plain {n_diff == 0} (differing "
+             f"{n_diff}, max ulp {max_ulp}) | kernel {ms:.4f} ms plain "
+             f"{plain_ms:.3f} ms bound {b_ms:.3g} ms ({b_by}; int32 at "
+             f"{int_ops_per_s / 1e12:.2f} T/s from {clock_mhz:.0f} MHz) | "
+             f"{smi}")
+        if what == "normal flagship AWGN":
+            kernels["threefry"] = dict(
+                name="threefry", route="cuda",
+                source="esn_ofdm_mimo_tpu_torch/csrc/threefry.cu",
+                replaces="esn_ofdm_mimo_tpu/ops/channel.py:275 (awgn's "
+                         "jax.random.normal: jax.random's threefry2x32_p, "
+                         "no pl.pallas_call)",
+                launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del got, want
+    kernels["threefry"]["max_abs_err"] = rng_err
+    del kri_r, kb_r
 
     # ---- 2. K1: BP decoder vs its plain version -----------------------------
     # The sum-product rule on its own, on the card (the exported entry of
@@ -1491,8 +1615,14 @@ def main() -> None:
         pt_n, ph_n, wall_n, la_n = count_run(
             lambda ph: nbf_snr_point(nbf, ebno_n, nbf_keys[ebno_n],
                                      timings=ph),
-            ("bp_decode", "esn_predict", "esn_states", "svdvals_small"),
+            ("bp_decode", "esn_predict", "esn_states", "svdvals_small",
+             "threefry"),
             f"nbf {ebno_n} dB")
+        # the eager point's draws: 13 fold_in, 5 split, 9 normal, 4
+        # uniform and 2 bernoulli
+        _check(la_n["threefry"] == 33,
+               f"nbf {ebno_n} dB: {la_n['threefry']} threefry launches, "
+               f"expected 33")
         nbf_wall[ebno_n], nbf_pts[ebno_n] = wall_n, pt_n
         ber = {d: v / pt_n.total_bits for d, v in pt_n.bit_errors.items()}
         coded = {d: v / pt_n.total_info_bits
@@ -1618,8 +1748,12 @@ def main() -> None:
                "unexpected codeword count")
         return wall, launches, ber_coded, phases
 
-    wall, _, coded_gd, ph_gd = flagship(
-        "main", ("bp_decode", "esn_predict", "esn_states"))
+    wall, la_main, coded_gd, ph_gd = flagship(
+        "main", ("bp_decode", "esn_predict", "esn_states", "threefry"))
+    # the eager point's draws, one launch each: 18 fold_in, 8 split, 14
+    # normal, 8 uniform and 4 bernoulli (1 cal + 1 decode round)
+    _check(la_main["threefry"] == 52,
+           f"main: {la_main['threefry']} threefry launches, expected 52")
     # the JAX package's own switch to the grouped-readout kernel
     os.environ["ESN_TPU_PREDICT_READOUT"] = "grouped"
     try:
@@ -1816,10 +1950,11 @@ def main() -> None:
                f"eager loop's {want}")
         _check(la["esn_predict"] == R_c * per_chunk
                and la["esn_states"] == R_c * per_chunk
-               and not any(la[k] for k in la
-                           if k not in ("esn_predict", "esn_states")),
+               and la["threefry"] > 0
+               and not any(la[k] for k in la if k not in (
+                   "esn_predict", "esn_states", "threefry")),
                f"{what}: traced launches {la}, expected K2 and K3 "
-               f"{per_chunk} a chunk")
+               f"{per_chunk} a chunk and the threefry kernel")
         syms = R_c * B_c * (c.data_symbols_per_block + 1)
         flop = cdl_flops(c, B_c).cal_counters * R_c
         rate = {k: (syms / w, flop / w / 1e12)
@@ -1893,9 +2028,10 @@ def main() -> None:
            f"cdl snr step: a replayed call launched from Python: {la_py}")
     _check(la_s["bp_decode"] == Rd_s and la_s["esn_predict"] == R_s
            and la_s["esn_states"] == k3_round * R_s
-           and same(pt_t, pts_s[0]),
+           and la_s["threefry"] > 0 and same(pt_t, pts_s[0]),
            f"cdl snr step: traced launches {la_s}, expected K1 {Rd_s}, K2 "
-           f"{R_s}, K3 {k3_round * R_s}, or another point")
+           f"{R_s}, K3 {k3_round * R_s}, the threefry kernel, or another "
+           f"point")
     torch.cuda.set_sync_debug_mode("error")
     try:
         pt_sync = step(ebno, *keys_s[2])
@@ -2034,9 +2170,11 @@ def main() -> None:
            f"nbf step: a replayed call launched from Python: {la_npy}")
     _check(la_n["bp_decode"] == R_n and la_n["esn_predict"] == fits_n * R_n
            and la_n["esn_states"] == fits_n * R_n
-           and la_n["svdvals_small"] == R_n and same(pt_tn, pts_n[0]),
+           and la_n["svdvals_small"] == R_n and la_n["threefry"] > 0
+           and same(pt_tn, pts_n[0]),
            f"nbf step: traced launches {la_n}, expected K1 {R_n}, K2 and K3 "
-           f"{fits_n * R_n}, the SVD kernel {R_n}, or another point")
+           f"{fits_n * R_n}, the SVD kernel {R_n}, the threefry kernel, or "
+           f"another point")
     torch.cuda.set_sync_debug_mode("error")
     try:
         pt_sn = nstep(12.0, keys_n[2])
@@ -2619,9 +2757,14 @@ def main() -> None:
         mr1, ser1, la1, out1 = classify_run(
             ["--fast", "--batch", "64", "--variant", "wide"], (),
             "classify sm1")
-        _check(not any(la1.values()) and "Trainable parameters" in out1,
-               f"classify sm1: launches {la1} on a path with no kernel, or "
-               f"no printed tables")
+        # the draws of 3 SNRs' datasets and models, whatever the epochs
+        # and batch: 6 fold_in, 20 split, 6 random_bits, 5 uniform and 15
+        # normal an SNR
+        _check(la1["threefry"] == 156
+               and not any(v for k, v in la1.items() if k != "threefry")
+               and "Trainable parameters" in out1,
+               f"classify sm1: launches {la1} on a path whose one kernel is "
+               f"the threefry RNG (156 launches), or no printed tables")
         want_params = {"esn": 9616, "deep_esn": 370216, "fnn": 11416,
                        "cnn": 180584, "rnn": 732016, "elm": 9600}
         got_params = {m: mr1["results"][0.0][m]["params"]
@@ -3160,7 +3303,8 @@ def main() -> None:
         if name in kernels:
             kernels[name]["launches"] = n
     order = ("bp_decode", "bp_decode_layered", "esn_predict", "esn_states",
-             "esn_predict_grouped", "esn_predict_ablate", "svdvals_small")
+             "esn_predict_grouped", "esn_predict_ablate", "svdvals_small",
+             "threefry")
     keys_out = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
@@ -3243,19 +3387,30 @@ def _counter_of(kernel: str):
         return "bp_decode"
     if "svdvals_small_kernel" in kernel:
         return "svdvals_small"
+    if "threefry_" in kernel:
+        return "threefry"
     return None
 
 
 def _profile_main_path(what: str, run, wall_ms: float) -> None:
     """Device time by kernel over one main-path run under torch.profiler,
     and the share of the unprofiled run's wall time `wall_ms` the device
-    was busy (kernels run on one stream, so their times add)."""
+    was busy (kernels run on one stream, so their times add); the threefry
+    kernel's launches and ms, and those of torch's int64 elementwise
+    kernels (`long` in the name: what is left of the plain RNG's kind)."""
     _, per = _trace_kernels(run)
     busy = sum(v[0] for v in per.values())
     _log(f"[profile {what}] device kernels {busy:.3f} ms in "
          f"{sum(v[1] for v in per.values())} launches = "
          f"{100 * busy / wall_ms:.1f}% of the unprofiled wall "
          f"{wall_ms:.3f} ms")
+    for label, pick in (
+            ("threefry kernel", lambda k: _counter_of(k) == "threefry"),
+            ("int64 elementwise",
+             lambda k: "elementwise" in k and "long" in k)):
+        sel = [v for k, v in per.items() if pick(k)]
+        _log(f"[profile {what}] {label}: {sum(v[1] for v in sel)} launches, "
+             f"{sum(v[0] for v in sel):.3f} ms")
     for name, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:15]:
         _log(f"[profile {what}] {ms:10.3f} ms {n:6d}x {name[:100]}")
 

@@ -29,9 +29,9 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The predict sources hold one kernel for each reservoir width and tile
 # height; nvcc optimises them on all cores at once.
 _SPLIT = ("-split-compile=0",)
-# Per-kernel extra flags. The BP decoders and the small SVD must reproduce
-# their plain versions' float sums exactly, so no multiply-add contraction
-# there.
+# Per-kernel extra flags. The BP decoders, the small SVD and the threefry
+# draws' float epilogues must reproduce their plain versions' roundings
+# exactly, so no multiply-add contraction there.
 EXTRA_FLAGS = {
     "bp_decode": ("--fmad=false",),
     "bp_decode_layered": ("--fmad=false",),
@@ -40,6 +40,7 @@ EXTRA_FLAGS = {
     "esn_predict_ablate": _SPLIT,
     "esn_states": (),
     "svdvals_small": ("--fmad=false",),
+    "threefry": ("--fmad=false",),
 }
 
 _LIBS: dict = {}
