@@ -98,14 +98,19 @@ Builds the port's eight CUDA kernel sources from esn_ofdm_mimo_tpu_torch/csrc/
      micro-benchmark's shape (9,472 rows, one readout per row), then the
      micro-benchmark itself (tools/bench_micro_torch.py, group pred), one
      line per variant;
-     [svd 8x4], [svd 2x2] the small-SVD kernel (csrc/svdvals_small.cu, a
-     port kernel: the JAX package's svdvals_small is plain jnp) against its
+     [svd 8x4], [svd 2x2], [svd 2x1] the small-SVD kernel
+     (csrc/svdvals_small.cu, a port kernel: the JAX package's
+     svdvals_small is plain jnp; Hermitian Jacobi on H^H H) against its
      plain version and the library SVD (torch.linalg.svdvals, the
      yardstick) on the channels of one full-width round, 128 blocks of
-     mimo_4x8_nbf (65,536 matrices of 8 x 4) and of mimo_2x2_nbf: each
-     singular value within 1e-5 relative of plain, ranks and condition
-     histogram equal to plain's, capacity within rtol 1e-5 of the
-     library's; ms, plain ms, library ms, bound;
+     mimo_4x8_nbf (65,536 matrices of 8 x 4), of mimo_2x2_nbf and of
+     simo_1x2_nbf: each singular value within 1e-5 relative of plain
+     (and whether identical), ranks and condition histogram equal to
+     plain's, capacity within rtol 1e-5 of the library's; ms, plain ms,
+     library ms, bound (and the real-embedded algorithm's count beside
+     it); [svd build ...] each build's registers, local memory (a spill
+     fails), SASS instructions a rotation and their issue floor (from
+     cuobjdump, where the toolkit has it);
   6. small reference checks: tiny CDL and tiny NBF configurations through
      `cdl_snr_point` / `nbf_snr_point` on the GPU (kernels) and on the CPU
      (plain versions), classical-detector counters within a few bit flips;
@@ -358,10 +363,13 @@ def _bound(n_bytes: float, ops: float, transc: float = 0.0):
 def _entry(name, source, replaces, err, ms, plain_ms, n_bytes, ops,
            transc=0.0):
     bound_ms, by = _bound(n_bytes, ops, transc)
+    # the line's vocabulary: the special-function unit's operations over
+    # its rate are operations too
     return dict(name=name, route="cuda",
                 source=f"esn_ofdm_mimo_tpu_torch/csrc/{source}",
                 replaces=replaces, launches=0, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if by == "bytes" else "operations",
                 library_ms=None)
 
 
@@ -375,6 +383,7 @@ def main() -> None:
     from esn_ofdm_mimo_tpu_torch.experiments.presets import (mimo_2x2_nbf,
                                                              mimo_4x8_cdl,
                                                              mimo_4x8_nbf,
+                                                             simo_1x2_nbf,
                                                              siso_qpsk_awgn)
     from esn_ofdm_mimo_tpu_torch.ldpc import decode as bp_graph
     from esn_ofdm_mimo_tpu_torch.ldpc import decode_cuda, ldpc_encode, \
@@ -1428,20 +1437,18 @@ def main() -> None:
     # against its plain version and the library SVD (torch.linalg.svdvals,
     # the yardstick; the port never calls it) on the channels of one
     # full-width round: [nbf main]'s 128 blocks at 12 dB (65,536 matrices
-    # of 8 x 4) and a mimo_2x2_nbf round (65,536 of 2 x 2). Gates: each
-    # singular value within 1e-5 relative of the plain version's, the
-    # analytics' ranks and condition histogram equal to the plain
-    # version's, the capacity within rtol 1e-5 of the library's
-    from esn_ofdm_mimo_tpu_torch.ops import taps_to_freq_response
+    # of 8 x 4), a mimo_2x2_nbf round (65,536 of 2 x 2) and a simo_1x2_nbf
+    # round (65,536 of 2 x 1: the n_t = 1 build, which no main path here
+    # launches). Gates: each singular value within 1e-5 relative of the
+    # plain version's, the analytics' ranks and condition histogram equal
+    # to the plain version's, the capacity within rtol 1e-5 of the
+    # library's. The bound counts the Hermitian form's work
+    # (tools/bench_svd_torch.py:svd_work), the count of the real-embedded
+    # algorithm, the kernel's earlier form, beside it; then each build's
+    # registers, local memory (a spill) and SASS a rotation from cuobjdump
+    import bench_svd_torch as svd_bench
     from esn_ofdm_mimo_tpu_torch.pipelines.blockfading import cond_histogram
-    from esn_ofdm_mimo_tpu_torch.pipelines.common import (_K_CHAN,
-                                                          _draw_taps,
-                                                          ebno_row)
-
-    def channel_of(c, bkeys):
-        """H_true of the blocks of bkeys (synth_block's channel draw)."""
-        taps = _draw_taps(c, rng.fold_in(bkeys, _K_CHAN))
-        return taps_to_freq_response(taps, c.ofdm.n_subcarriers)
+    from esn_ofdm_mimo_tpu_torch.pipelines.common import ebno_row
 
     def metrics_with(svd, H, c, e):
         """channel_svd_metrics of H at Eb/N0 e with `svd` in place of
@@ -1454,26 +1461,12 @@ def main() -> None:
         finally:
             analytics.svdvals_small = saved
 
-    def svd_work(H):
-        """(bytes, fp32 operations, transcendentals) that svdvals_small on
-        H needs: H read once, S written once; the Gram's n (n + 1) / 2
-        distinct entries (it is symmetric; 2 n_r products and sums each,
-        n = 2 n_t); for each rotation 12 operations for its angle, 6 for
-        each of the n - 2 entries of its two rows outside the (p, q)
-        block (the columns mirror them) and 24 for the 2 x 2 block, rows
-        and columns; 5 square roots and divisions a rotation."""
-        n_r, n_t = H.shape[-2:]
-        b, n = H.numel() // (n_r * n_t), 2 * n_t
-        rot = analytics.SWEEPS * n * (n - 1) // 2
-        return (8 * H.numel() + 4 * b * n_t,
-                b * (2 * n_r * n * (n + 1) + rot * (6 * n + 24)),
-                5 * b * rot)
-
     svd_metrics = {}
-    for c_s, what in ((nbf, "8x4"), (mimo_2x2_nbf(), "2x2")):
-        H_s = channel_of(c_s, rng.block_keys(
-            rng.prng_key(0), c_s.ebno_db.index(12.0),
-            torch.arange(128)).to(dev))
+    svd_h = {}
+    for c_s, what in ((nbf, "8x4"), (mimo_2x2_nbf(), "2x2"),
+                      (simo_1x2_nbf(), "2x1")):
+        # synth_block's channel draw of 128 blocks at 12 dB
+        H_s = svd_bench.round_channels(c_s.name, dev)
         S_k = analytics.svdvals_small(H_s)
         S_p = analytics.svdvals_small_plain(H_s)
         S_l = torch.linalg.svdvals(H_s)
@@ -1496,11 +1489,25 @@ def main() -> None:
                          / m_l.capacity_per_sc).max())
         _check(cap_rel <= 1e-5, f"svd {what}: capacity {cap_rel} relative "
                                 f"from the library SVD's")
-        ms = cuda_ms(lambda: analytics.svdvals_small(H_s), 20)
+        # the kernel's time from a CUDA graph of 20 launches, beside 20
+        # launched from Python, where a kernel shorter than its launch's
+        # host time shows the host's
+        ms = svd_bench.graph_ms(lambda: analytics.svdvals_small(H_s), 20)
+        eager_ms = cuda_ms(lambda: analytics.svdvals_small(H_s), 20)
+        # H is taps_to_freq_response's movedim view, which the wrapper
+        # copies to a contiguous tensor: the kernel alone on such a copy
+        H_c = H_s.contiguous()
+        alone_ms = svd_bench.graph_ms(lambda: analytics.svdvals_small(H_c),
+                                      20)
+        del H_c
         plain_ms = cuda_ms(lambda: analytics.svdvals_small_plain(H_s), 2)
         lib_ms = cuda_ms(lambda: torch.linalg.svdvals(H_s), 5)
-        b_ms, b_by = _bound(*svd_work(H_s))
+        work = svd_bench.svd_work(H_s)
+        ran = work[2] / 8 / (H_s.numel() // (H_s.shape[-2] * H_s.shape[-1]))
+        b_ms, b_by = _bound(*work)
+        o_ms, o_by = _bound(*svd_bench.svd_work(H_s, real_embedding=True))
         full = min(c_s.channel.n_tx, c_s.channel.n_rx)
+        n_t = H_s.shape[-1]
         svd_metrics[what] = (m_k, m_l)
         _log(f"[svd {what}] {tuple(H_s.shape)} complex64: kernel against "
              f"plain max relative error {rel:.3e} (identical: "
@@ -1510,17 +1517,33 @@ def main() -> None:
              f"{int((m_k.rank >= full).sum())} library "
              f"{int((m_l.rank >= full).sum())}, histogram L1 to the library "
              f"{int((hist_k - hist_l).abs().sum())}, capacity relative "
-             f"{cap_rel:.3e} | kernel {ms:.4f} ms plain {plain_ms:.3f} ms "
-             f"library {lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}) | {smi}")
+             f"{cap_rel:.3e} | kernel {ms:.4f} ms (a graph of 20 launches; "
+             f"from Python {eager_ms:.4f} ms; on a contiguous H, without "
+             f"the wrapper's copy, {alone_ms:.4f} ms) plain {plain_ms:.3f} ms "
+             f"library {lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}, "
+             f"{ran:.2f} rotations ran a matrix of "
+             f"{analytics.SWEEPS * n_t * (n_t - 1) // 2}; {b_ms / ms:.1%} of "
+             f"it; the real embedding's count {o_ms:.4f} ms, {o_by}) | {smi}")
         if what == "8x4":
             kernels["svdvals_small"] = _entry(
                 "svdvals_small", "svdvals_small.cu",
                 "esn_ofdm_mimo_tpu/ops/linalg_mxu.py:207 (svdvals_small, "
                 "plain jnp: no pl.pallas_call)",
-                float((S_k - S_p).abs().max()), ms, plain_ms,
-                *svd_work(H_s))
+                float((S_k - S_p).abs().max()), ms, plain_ms, *work)
             kernels["svdvals_small"]["library_ms"] = lib_ms
-        del H_s, S_k, S_p, S_l
+        svd_h[tuple(H_s.shape[-2:])] = H_s
+        del S_k, S_p, S_l
+    if os.path.exists(os.path.join(os.path.dirname(build.nvcc_path()),
+                                   "cuobjdump")):
+        for (n_r, n_t), r in sorted(svd_bench.build_report().items()):
+            if (n_r, n_t) in svd_h:
+                _check(r["local"] == 0 and r["stack"] == 0,
+                       f"svd build {n_r}x{n_t} spills: {r}")
+                _log(f"[svd build {n_r}x{n_t}] "
+                     f"{svd_bench.build_line(r, n_r, n_t, svd_h[n_r, n_t])}")
+    else:
+        _log("[svd build] no cuobjdump in the toolkit: SASS not read")
+    del svd_h, H_s
 
     # ---- 6. small reference checks: GPU kernels vs CPU plain versions ------
     root = rng.prng_key(0)

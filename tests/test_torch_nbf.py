@@ -3,9 +3,9 @@
   * draw_exp_pdp_taps and awgn: bit for bit equal to the JAX draws when fed
     the JAX package's normals, and within the normals' few-ulp band at the
     same keys (the port's erfinv rounds differently, test_torch_rng.py);
-  * channel_svd_metrics (torch.linalg.svdvals) against the JAX Jacobi
-    singular values: capacity and condition numbers within rtol 1e-5, ranks
-    equal;
+  * channel_svd_metrics (the port's svdvals_small: Hermitian Jacobi on
+    H^H H, its plain version on the CPU) against the JAX Jacobi singular
+    values: capacity and condition numbers within rtol 1e-5, ranks equal;
   * the condition histogram reproduces jnp.histogram, closed last bin and
     infinite edge included;
   * run_nbf_blocks (device="cpu", so every kernel's plain version runs)
