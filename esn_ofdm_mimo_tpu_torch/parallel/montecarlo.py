@@ -98,7 +98,7 @@ from ..pipelines.graphs import GraphCaptureError, cached_graphs, graph_key
 from ..utils import rng
 from ..utils.device import resolve_device
 from ..utils.metrics import (EventClock, PhaseClock, check_finite,
-                             nan_checks_enabled)
+                             nan_checks_enabled, span)
 from .mesh import TrialsMesh, all_gather_cat, all_sum_
 
 
@@ -125,8 +125,9 @@ def _layout(mesh: TrialsMesh | None) -> tuple:
 def _sum_(mesh: TrialsMesh | None, *accs: torch.Tensor):
     """Device accumulators summed over the layout's ranks in place."""
     if _distributed(mesh):
-        for x in accs:
-            all_sum_(mesh, x)
+        with span("mc.collective"):
+            for x in accs:
+                all_sum_(mesh, x)
 
 
 def _share(keys: torch.Tensor, mesh: TrialsMesh | None) -> torch.Tensor:
@@ -321,8 +322,10 @@ def _rounds(cfg: SimConfig, G: int, dev: torch.device,
 def _stage_row(g: CdlRounds, cfg: SimConfig, ebno_db):
     """Copy the row of `ebno_db` (a float, or an EbnoRow) into g.row: a
     device-to-device copy from its staged row."""
-    g.row.copy_(torch.stack(tuple(ebno_db)) if isinstance(ebno_db, EbnoRow)
-                else ebno_rows(cfg, (ebno_db,), g.dev)[0])
+    with span("mc.stage"):
+        g.row.copy_(torch.stack(tuple(ebno_db))
+                    if isinstance(ebno_db, EbnoRow)
+                    else ebno_rows(cfg, (ebno_db,), g.dev)[0])
 
 
 def _unpack(g: CdlRounds, cal_acc, dec_acc, calib, Rc: int, Rd: int
@@ -429,9 +432,10 @@ def make_sharded_cdl_steps(cfg: SimConfig, device=None,
         with _on(dev):
             g = _rounds(cfg, keys.shape[1], dev, mesh)
             _stage_row(g, cfg, row)
-            g.calib.copy_(torch.stack([torch.stack([
-                torch.as_tensor(x, dtype=torch.float32, device=dev)
-                for x in calib[d]]) for d in CDL_DETECTORS]))
+            with span("mc.stage"):
+                g.calib.copy_(torch.stack([torch.stack([
+                    torch.as_tensor(x, dtype=torch.float32, device=dev)
+                    for x in calib[d]]) for d in CDL_DETECTORS]))
             g.prepare_decode(keys)
             g.dec_acc.zero_()
             clock = EventClock(dev, timings)
@@ -477,7 +481,7 @@ def make_fused_cdl_snr_step(cfg: SimConfig, device=None,
                                  timings, mesh)
         ck = _share(rng.as_keys(cal_keys, dev), mesh)
         dk = _share(rng.as_keys(dec_keys, dev), mesh)
-        with _on(dev):
+        with span("mc.step.cdl_point"), _on(dev):
             g = _rounds(cfg, ck.shape[1], dev, mesh)
             clock = EventClock(dev, timings)
             _stage_row(g, cfg, ebno_db)
@@ -525,7 +529,7 @@ def make_fused_cdl_grid(cfg: SimConfig, blocks_per_round: int,
             return [cdl_snr_point(cfg, e, k[:Rc], k[Rc:], dev, timings,
                                   mesh) for e, k in zip(ebnos, keys)]
         keys = [_share(k, mesh) for k in keys]
-        with _on(dev):
+        with span("mc.step.cdl_grid"), _on(dev):
             g = _rounds(cfg, G // _layout(mesh)[0], dev, mesh)
             rows = ebno_rows(cfg, ebnos, dev)
             n = len(ebnos)
@@ -534,7 +538,8 @@ def make_fused_cdl_grid(cfg: SimConfig, blocks_per_round: int,
             calib_out = g.calib.new_zeros((n,) + g.calib.shape)
             clock = EventClock(dev, timings)
             for jj in range(n):
-                g.row.copy_(rows[jj])
+                with span("mc.stage"):
+                    g.row.copy_(rows[jj])
                 g.point(keys[jj][:Rc], keys[jj][Rc:], clock, mesh)
                 cal_out[jj].copy_(g.cal_acc)
                 dec_out[jj].copy_(g.dec_acc)
@@ -580,7 +585,7 @@ def nbf_snr_point(cfg: SimConfig, ebno_db: float, keys, device=None,
     keys (R, G, 2): per-block uint32 key data (numpy or tensors), as
     utils.rng.block_keys makes them. `device` defaults to "cuda" and raises
     without CUDA unless "cpu" is asked for. `timings`, when given, receives
-    the wall ms of each phase summed over rounds (synth_fit, detect,
+    the wall ms of each phase summed over rounds (synth, esn_fit, detect,
     decode, analytics). Returns NbfCounts of Python ints and floats, the
     histogram as an int64 numpy array. With a `mesh` every rank passes the
     same global keys, runs its share of each round, and returns the
@@ -631,7 +636,7 @@ def make_sharded_nbf_scan_step(cfg: SimConfig, device=None,
         if reason is not None:
             return nbf_snr_point(cfg, ebno_db, keys, dev, mesh=mesh)
         keys = _share(rng.as_keys(keys, dev), mesh)
-        with _on(dev):
+        with span("mc.step.nbf_rounds"), _on(dev):
             g = _nbf_rounds(cfg, keys.shape[1], dev, mesh)
             _stage_row(g, cfg, ebno_db)
             g.rounds(keys, _nbf_cap(cfg, ebno_db))
@@ -685,12 +690,13 @@ def make_fused_nbf_grid(cfg: SimConfig, blocks_per_round: int, rounds: int,
             return [nbf_snr_point(cfg, e, k, dev, mesh=mesh)
                     for e, k in zip(ebnos, keys)]
         keys = [_share(k, mesh) for k in keys]
-        with _on(dev):
+        with span("mc.step.nbf_grid"), _on(dev):
             g = _nbf_rounds(cfg, G // _layout(mesh)[0], dev, mesh)
             rows = ebno_rows(cfg, ebnos, dev)
             outs = [b.new_zeros((len(ebnos),) + b.shape) for b in g.accs]
             for jj, e in enumerate(ebnos):
-                g.row.copy_(rows[jj])
+                with span("mc.stage"):
+                    g.row.copy_(rows[jj])
                 g.rounds(keys[jj], _nbf_cap(cfg, e))
                 for o, b in zip(outs, g.accs):
                     o[jj].copy_(b)

@@ -34,7 +34,7 @@ from ..ldpc import ldpc_decode_bp_counts, llr_from_yobs, make_code
 from ..ops import channel_svd_metrics, est_sigma2_from_decision, \
     qam_llrs_maxlog, symbols_to_bits_hard
 from ..utils.device import device_constant
-from ..utils.metrics import check_finite
+from ..utils.metrics import check_finite, span
 from .common import (DETECTORS, EbnoRow, _as_row, data_bits_for_blocks,
                      detect_data_symbols, row_view, synth_block)
 from .graphs import Body
@@ -104,9 +104,10 @@ def run_nbf_blocks(cfg: SimConfig, ebno_db: float | EbnoRow,
     counters (JAX run_nbf_blocks). ebno_db a float or its EbnoRow on the
     keys' device; `iter_cap` the BP cap, by default `bp_iter_cap` of the
     float Eb/N0 (with a row of a coded config it must be given).
-    `mark(phase)`, when given, is called as each phase ends: "synth_fit",
-    "detect", "decode" (coded runs only), "analytics". `esn_over` replaces
-    ESN hyperparameters (pipelines/common.py:synth_block)."""
+    `mark(phase)`, when given, is called as each phase ends: "synth",
+    "esn_fit" (synth_block), "detect", "decode" (coded runs only),
+    "analytics". `esn_over` replaces ESN hyperparameters
+    (pipelines/common.py:synth_block)."""
     mark = mark or (lambda phase: None)
     ofdm, lc = cfg.ofdm, cfg.ldpc
     N, m = ofdm.n_subcarriers, ofdm.bits_per_symbol
@@ -121,8 +122,7 @@ def run_nbf_blocks(cfg: SimConfig, ebno_db: float | EbnoRow,
     code = make_code(lc, N * m) if lc.enabled else None
     if code is not None and iter_cap is None:
         iter_cap = bp_iter_cap(cfg, ebno_db)
-    state = synth_block(cfg, ebno_db, bkeys, esn_over)
-    mark("synth_fit")
+    state = synth_block(cfg, ebno_db, bkeys, esn_over, mark=mark)
     code_bits, info_bits = data_bits_for_blocks(cfg, bkeys, D, code)
     data = detect_data_symbols(cfg, state, row, bkeys, code_bits, detectors)
 
@@ -214,7 +214,8 @@ class NbfRounds:
     There is one body for each BP cap (max_iter and 2 * max_iter; None for
     an uncoded config), made on first use. On the card it is a CUDA graph
     captured after one eager call on a side stream and replayed; on the CPU
-    it runs eagerly with the kernels' plain versions."""
+    it runs eagerly with the kernels' plain versions. Every cap's body is
+    named `nbf.round` (pipelines/graphs.py: its spans and record)."""
 
     def __init__(self, cfg: SimConfig, G: int, dev: torch.device):
         self.cfg, self.G, self.dev = cfg, G, dev
@@ -239,13 +240,14 @@ class NbfRounds:
         as they are (its warm-up adds into the accumulators: zero them
         after)."""
         if cap not in self.bodies:
-            self.bodies[cap] = Body(lambda: self._round(cap),
-                                    f"the NBF round (BP cap {cap})", self.dev)
+            self.bodies[cap] = Body(
+                lambda mark=None: self._round(cap, mark), "nbf.round",
+                self.dev)
         return self.bodies[cap]
 
-    def _round(self, cap):
+    def _round(self, cap, mark=None):
         c = run_nbf_blocks(self.cfg, row_view(self.row), self.keys,
-                           iter_cap=cap)
+                           mark=mark, iter_cap=cap)
         if tuple(c.bit_errors) != self.dets:
             raise ValueError(f"the round counted {tuple(c.bit_errors)}, "
                              f"not {self.dets}")
@@ -265,11 +267,13 @@ class NbfRounds:
         """Rounds of keys (R, G, 2) at the Eb/N0 in row with BP cap `cap`:
         the accumulators zeroed, then one replay a round (the body captured
         first, warmed up on the first round's keys)."""
-        self.keys.copy_(keys[0])
+        with span("mc.stage"):
+            self.keys.copy_(keys[0])
         body = self.body(cap)
         self.zero()
         for r in range(keys.shape[0]):
-            self.keys.copy_(keys[r])
+            with span("mc.stage"):
+                self.keys.copy_(keys[r])
             body.run()
 
     def counts(self, det_acc=None, totals=None, capacity_sum=None,

@@ -15,6 +15,7 @@ Detectors are "esn" and "mmse" (CDL_DETECTORS). Counters are int64.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Tuple
 
 import torch
@@ -24,6 +25,7 @@ from ..ldpc import ldpc_decode_bp_counts, llr_from_yobs, make_code
 from ..ops import est_sigma2_from_decision, qam_llrs_maxlog, \
     symbols_to_bits_hard
 from ..utils import rng
+from ..utils.metrics import span
 from .common import (EbnoRow, data_bits_for_blocks, detect_data_symbols,
                      ebno_rows, row_view, synth_block)
 # the graph machinery, which the CDL and block-fading pipelines share; its
@@ -68,39 +70,47 @@ def _uncoded_counts(code_bits: torch.Tensor, X_hat: dict, m: int) -> dict:
             for name, Xh in X_hat.items()}
 
 
-def _detect(cfg: SimConfig, ebno_db: float | EbnoRow, bkeys: torch.Tensor):
+def _detect(cfg: SimConfig, ebno_db: float | EbnoRow, bkeys: torch.Tensor,
+            mark=None):
+    """The round's blocks up to the detectors' symbols; `mark(phase)`, when
+    given, is called as "synth", "esn_fit" (synth_block) and "detect"
+    end."""
+    mark = mark or (lambda phase: None)
     N, m = cfg.ofdm.n_subcarriers, cfg.ofdm.bits_per_symbol
     code = make_code(cfg.ldpc, N * m)
-    state = synth_block(cfg, ebno_db, bkeys)
+    state = synth_block(cfg, ebno_db, bkeys, mark=mark)
     code_bits, info_bits = data_bits_for_blocks(
         cfg, bkeys, cfg.data_symbols_per_block, code)
     data = detect_data_symbols(cfg, state, ebno_db, bkeys, code_bits,
                                CDL_DETECTORS)
+    mark("detect")
     return code, code_bits, info_bits, data
 
 
 def _cal_counters(cfg: SimConfig, ebno_db: float | EbnoRow,
-                  bkeys: torch.Tensor):
+                  bkeys: torch.Tensor, mark=None):
     """The calibration round up to its uncoded counters: (code_bits (B, D,
     n_tx, n), X_hat detector -> (B, D, N, n_tx), bit errors detector -> int64
-    scalar)."""
-    _, code_bits, _, data = _detect(cfg, ebno_db, bkeys)
+    scalar). `mark` as in `_detect`."""
+    _, code_bits, _, data = _detect(cfg, ebno_db, bkeys, mark)
     return code_bits, data.X_hat, _uncoded_counts(
         code_bits, data.X_hat, cfg.ofdm.bits_per_symbol)
 
 
 def run_cdl_cal_blocks(cfg: SimConfig, ebno_db: float | EbnoRow,
-                       bkeys: torch.Tensor) -> CdlCalData:
+                       bkeys: torch.Tensor, mark=None) -> CdlCalData:
     """Calibration phase: uncoded counts + (llr, bit) calibration data.
     ebno_db a float or its EbnoRow (pipelines/common.py), as in every
-    function of this module that takes one."""
+    function of this module that takes one. `mark(phase)`, when given, is
+    called as "synth", "esn_fit", "detect" and "llr" end."""
+    mark = mark or (lambda phase: None)
     N, m = cfg.ofdm.n_subcarriers, cfg.ofdm.bits_per_symbol
-    code_bits, X_hat, errs = _cal_counters(cfg, ebno_db, bkeys)
+    code_bits, X_hat, errs = _cal_counters(cfg, ebno_db, bkeys, mark)
     B, D, n_tx = code_bits.shape[:3]
-    return CdlCalData(
-        bit_errors=errs, total_bits=code_bits.numel(),
-        llr={name: _llrs_for(Xh, m) for name, Xh in X_hat.items()},
-        bits=code_bits.reshape(B, D, n_tx, N, m))
+    llr = {name: _llrs_for(Xh, m) for name, Xh in X_hat.items()}
+    mark("llr")
+    return CdlCalData(bit_errors=errs, total_bits=code_bits.numel(), llr=llr,
+                      bits=code_bits.reshape(B, D, n_tx, N, m))
 
 
 class CalGraph:
@@ -119,12 +129,13 @@ class CalGraph:
         B, D = first_keys.shape[0], cfg.data_symbols_per_block
         self.total_bits = (B * D * cfg.channel.n_tx * cfg.ofdm.n_subcarriers
                            * cfg.ofdm.bits_per_symbol)
-        self.body = Body(self._chunk, "the calibration chunk", dev)
+        self.body = Body(self._chunk, "chunk.cal", dev)
         self.capture_ms, self.pool_bytes = (self.body.capture_ms,
                                             self.body.pool_bytes)
 
-    def _chunk(self):
-        _, _, errs = _cal_counters(self.cfg, row_view(self.row), self.keys)
+    def _chunk(self, mark=None):
+        _, _, errs = _cal_counters(self.cfg, row_view(self.row), self.keys,
+                                   mark)
         for name, a in self.acc.items():
             a.add_(errs[name])
 
@@ -153,36 +164,32 @@ def run_cdl_cal_counters_chunks(cfg: SimConfig, ebno_db: float, bkeys2d
     detection-throughput path (its lax.scan over chunks, one traced
     program, counters accumulated on the device).
 
-    CPU keys run the chunks one after another with the plain kernels. CUDA
-    keys run one chunk captured as a CUDA graph (`cal_graph`, after one
-    eager warm-up chunk) and replay it R times, copying the Eb/N0 row into
-    its row buffer and chunk r's keys into its key buffer before replay r;
-    nothing syncs the host until the caller reads the counters. The
+    The chunk is a `cal_graph` body run R times, the Eb/N0 row copied into
+    its row buffer and chunk r's keys into its key buffer before run r.
+    CUDA keys capture it as a CUDA graph (after one eager warm-up chunk)
+    and replay it; nothing syncs the host until the caller reads the
+    counters. CPU keys run it eagerly with the plain kernels. The
     kernels' launch counters count the launches made from Python, the
     warm-up's and the capture's: a replay launches the captured kernels
     from the graph and adds nothing to them (a trace of the card counts
     those). A capture that fails raises: the card never falls back to an
     eager loop."""
     bkeys2d = rng.as_keys(bkeys2d)
-    R = bkeys2d.shape[0]
-    if bkeys2d.device.type == "cpu" or R == 0:
-        errs = {name: torch.zeros((), dtype=torch.int64,
-                                  device=bkeys2d.device)
-                for name in CDL_DETECTORS}
-        total = 0
-        for r in range(R):
-            code_bits, _, e = _cal_counters(cfg, ebno_db, bkeys2d[r])
-            for name in errs:
-                errs[name] += e[name]
-            total += code_bits.numel()
-        return errs, total
-    g = cal_graph(cfg, ebno_db, bkeys2d[0])
-    with torch.cuda.device(g.keys.device):
-        g.row.copy_(ebno_rows(cfg, (ebno_db,), g.keys.device)[0])
+    R, dev = bkeys2d.shape[0], bkeys2d.device
+    if R == 0:
+        return {name: torch.zeros((), dtype=torch.int64, device=dev)
+                for name in CDL_DETECTORS}, 0
+    with span("mc.step.cal_chunks"), (
+            torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext()):
+        g = cal_graph(cfg, ebno_db, bkeys2d[0])
+        with span("mc.stage"):
+            g.row.copy_(ebno_rows(cfg, (ebno_db,), dev)[0])
         for a in g.acc.values():
             a.zero_()
         for r in range(R):
-            g.keys.copy_(bkeys2d[r])
+            with span("mc.stage"):
+                g.keys.copy_(bkeys2d[r])
             g.body.run()
         return ({name: a.clone() for name, a in g.acc.items()},
                 R * g.total_bits)
@@ -268,12 +275,14 @@ def fit_calibrators(cfg: SimConfig, cal: dict, bits: torch.Tensor) -> dict:
 
 
 def run_cdl_detect_llrs(cfg: SimConfig, ebno_db: float | EbnoRow,
-                        bkeys: torch.Tensor, calib: dict):
+                        bkeys: torch.Tensor, calib: dict, mark=None):
     """Decode-phase detection: (uncoded errs dict, total_bits, Lc dict
     detector -> (ncw, n) calibrated channel LLRs, info_bits (ncw, k)),
-    ncw = B*D*n_tx codewords."""
+    ncw = B*D*n_tx codewords. `mark(phase)`, when given, is called as
+    "synth", "esn_fit", "detect" and "llr" end."""
+    mark = mark or (lambda phase: None)
     N, m = cfg.ofdm.n_subcarriers, cfg.ofdm.bits_per_symbol
-    code, code_bits, info_bits, data = _detect(cfg, ebno_db, bkeys)
+    code, code_bits, info_bits, data = _detect(cfg, ebno_db, bkeys, mark)
     B, D, n_tx = code_bits.shape[:3]
     clip = cfg.ldpc.llr_clip
     Lcs = {}
@@ -282,6 +291,7 @@ def run_cdl_detect_llrs(cfg: SimConfig, ebno_db: float | EbnoRow,
         llr_cal = torch.clamp(-(a * _llrs_for(Xh, m) + b), -clip, clip)
         y_obs = 0.5 * llr_cal.reshape(B, D, n_tx, N * m)
         Lcs[name] = llr_from_yobs(y_obs, snr_db=1.0).reshape(-1, N * m)
+    mark("llr")
     return (_uncoded_counts(code_bits, data.X_hat, m), code_bits.numel(),
             Lcs, info_bits.reshape(-1, code.k))
 
@@ -355,7 +365,9 @@ class CdlRounds:
     (`point`), so every rank fits the same calibrators. On the card each
     body is a CUDA graph captured on first use (after one
     eager call on a side stream, which warms up every first-use host step,
-    K1's code tensors among them) and replayed; on the CPU it runs. A
+    K1's code tensors among them) and replayed; on the CPU it runs. The
+    bodies are named `cdl.cal`, `cdl.fit`, `cdl.detect`, `cdl.decode`
+    (pipelines/graphs.py: their spans and records). A
     decode round is detect then decode: BP decodes each codeword alone,
     with its own exit, so decoding each round alone counts what one decode
     of the round-stacked LLRs counts."""
@@ -393,7 +405,7 @@ class CdlRounds:
         if key not in self.bodies:
             fn = (self._fit_fn(Rc) if name == "fit"
                   else getattr(self, f"_{name}"))
-            self.bodies[key] = Body(fn, f"the CDL {name} body", self.dev)
+            self.bodies[key] = Body(fn, f"cdl.{name}", self.dev)
         return self.bodies[key]
 
     def gathered(self, Rc: int):
@@ -417,15 +429,17 @@ class CdlRounds:
         if mesh is None:
             return
         from ..parallel.mesh import all_gather_into  # parallel imports this
-        for x in self.gathered(Rc):
-            all_gather_into(mesh, x, x[self.rank])
+        with span("mc.collective"):
+            for x in self.gathered(Rc):
+                all_gather_into(mesh, x, x[self.rank])
 
     def _calib(self) -> dict:
         return {d: (self.calib[i, 0], self.calib[i, 1])
                 for i, d in enumerate(CDL_DETECTORS)}
 
-    def _cal(self):
-        out = run_cdl_cal_blocks(self.cfg, row_view(self.row), self.keys)
+    def _cal(self, mark=None):
+        out = run_cdl_cal_blocks(self.cfg, row_view(self.row), self.keys,
+                                 mark)
         for i, d in enumerate(CDL_DETECTORS):
             self.cal_acc[i].add_(out.bit_errors[d])
             self.llr[i].copy_(out.llr[d].reshape(-1, self.m))
@@ -434,7 +448,7 @@ class CdlRounds:
     def _fit_fn(self, Rc: int):
         llr, bits = self.gathered(Rc)
 
-        def fit():
+        def fit(mark=None):
             # global block order: (W, ..., Rc, S, m) -> (..., Rc, W, S, m);
             # one rank's is a view, as its stack is
             x = llr.permute(1, 2, 0, 3, 4).reshape(llr.shape[1], -1, self.m)
@@ -446,15 +460,15 @@ class CdlRounds:
                 self.calib[i, 1].copy_(calib[d][1])
         return fit
 
-    def _detect(self):
+    def _detect(self, mark=None):
         errs, _, Lcs, u = run_cdl_detect_llrs(
-            self.cfg, row_view(self.row), self.keys, self._calib())
+            self.cfg, row_view(self.row), self.keys, self._calib(), mark)
         for i, d in enumerate(CDL_DETECTORS):
             self.dec_acc[0, i].add_(errs[d])
             self.Lc[i].copy_(Lcs[d])
         self.u.copy_(u)
 
-    def _decode(self):
+    def _decode(self, mark=None):
         dec = cdl_decode_counters(
             self.cfg, {d: self.Lc[i] for i, d in enumerate(CDL_DETECTORS)},
             self.u)
@@ -469,17 +483,20 @@ class CdlRounds:
         Rc = keys.shape[0]
         llr, bits = self.stack(Rc)
         for r in range(Rc):
-            self.keys.copy_(keys[r])
+            with span("mc.stage"):
+                self.keys.copy_(keys[r])
             self.body("cal").run()
-            llr[:, r].copy_(self.llr)
-            bits[r].copy_(self.bits)
+            with span("mc.stage"):
+                llr[:, r].copy_(self.llr)
+                bits[r].copy_(self.bits)
         if clock is not None:
             clock.mark("cal")
 
     def prepare_decode(self, keys: torch.Tensor):
         """Capture the detect and decode bodies where not yet, warmed up on
         the first round of keys (Rd, G, 2)."""
-        self.keys.copy_(keys[0])
+        with span("mc.stage"):
+            self.keys.copy_(keys[0])
         self.body("detect")
         self.body("decode")
 
@@ -487,7 +504,8 @@ class CdlRounds:
         """Decode rounds of keys (Rd, G, 2) with the calibrators in calib,
         adding into dec_acc (not zeroed)."""
         for r in range(keys.shape[0]):
-            self.keys.copy_(keys[r])
+            with span("mc.stage"):
+                self.keys.copy_(keys[r])
             self.body("detect").run()
             if clock is not None:
                 clock.mark("detect")
@@ -504,7 +522,8 @@ class CdlRounds:
         are captured before the run, so their warm-up calls leave no trace
         in the results."""
         Rc = cal_keys.shape[0]
-        self.keys.copy_(cal_keys[0])
+        with span("mc.stage"):
+            self.keys.copy_(cal_keys[0])
         self.body("cal")
         self.body("fit", Rc)
         self.prepare_decode(dec_keys)

@@ -223,7 +223,7 @@ ESN_OVERRIDES = ("spectral_radius", "sparsity", "noise", "input_scaler",
 
 def synth_block(cfg: SimConfig, ebno_db: float | EbnoRow,
                 bkeys: torch.Tensor, esn_over: dict | None = None,
-                return_pilot: bool = False):
+                return_pilot: bool = False, mark=None):
     """Channel draw, pilot synthesis, channel estimation and ESN training
     for B blocks (reference OFDM_SISO_NBF_LDPC.py:270-384). bkeys (B, 2);
     ebno_db a float or its EbnoRow on the keys' device.
@@ -239,7 +239,12 @@ def synth_block(cfg: SimConfig, ebno_db: float | EbnoRow,
     return_pilot: also return the pilot's waveforms (y_cp, x_tgt), the
     received pilot and the teacher the ESN trained on (the reference
     trains every zoo model on them, Demo_MIMO_2x2_all_DL_model_comparion.py
-    :310), as (BlockState, (y_cp, x_tgt))."""
+    :310), as (BlockState, (y_cp, x_tgt)).
+
+    mark(phase), when given, is called as "synth" ends (channel, pilots,
+    estimates, reservoir draw) and as "esn_fit" ends (K3 and the readout
+    solve of each fit)."""
+    mark = mark or (lambda phase: None)
     per_block = _per_block(cfg)
     ofdm, esn_cfg, ch = cfg.ofdm, cfg.esn, cfg.channel
     N, cp, isi = ofdm.n_subcarriers, ofdm.cp_len, ofdm.isi_duration
@@ -308,9 +313,7 @@ def synth_block(cfg: SimConfig, ebno_db: float | EbnoRow,
         seed = key_seed_tensor(rng.fold_in(bkeys[0], tag))
         return scale, train_mimo_esn(res, scale, y, x, delay, cp, seed)
 
-    scale_m, Wt_out_m = fit(lb.input_scaling, y_cp, x_tgt, _K_ESNFIT,
-                            hyper["teacher_scaling"])
-    scale_f = Wt_out_f = None
+    fixed = None
     if esn_cfg.train_ebno_fixed_db is not None:
         # the same pilot and channel, re-synthesised at the fixed training
         # Eb/N0 with its own noise draw (:347-357)
@@ -318,11 +321,16 @@ def synth_block(cfg: SimConfig, ebno_db: float | EbnoRow,
         x_cp_f, x_clean_f = _tx_chain(cfg, X_p, lb_f)
         y_cp_f = apply_fir_channel(taps, x_cp_f) + awgn(
             rng.fold_in(bkeys, _K_PNOISE_F), (n_rx, T), ofdm.noise_psd, T)
-        scale_f, Wt_out_f = fit(_f32(np.float32(hyper["input_scaler"])
-                                     / np.sqrt(np.float32(lb_f.var_x))),
-                                y_cp_f,
-                                _esn_target(cfg, x_cp_f, x_clean_f),
-                                _K_ESNFIT_F, esn_cfg.teacher_scaling)
+        fixed = (_f32(np.float32(hyper["input_scaler"])
+                      / np.sqrt(np.float32(lb_f.var_x))),
+                 y_cp_f, _esn_target(cfg, x_cp_f, x_clean_f))
+    mark("synth")
+    scale_m, Wt_out_m = fit(lb.input_scaling, y_cp, x_tgt, _K_ESNFIT,
+                            hyper["teacher_scaling"])
+    scale_f = Wt_out_f = None
+    if fixed is not None:
+        scale_f, Wt_out_f = fit(*fixed, _K_ESNFIT_F, esn_cfg.teacher_scaling)
+    mark("esn_fit")
     state = BlockState(taps=taps, H_true=H_true, H_ls=H_ls, H_mmse=H_mmse,
                        reservoir=res, scale_m=scale_m, scale_f=scale_f,
                        Wt_out_m=Wt_out_m, Wt_out_f=Wt_out_f)

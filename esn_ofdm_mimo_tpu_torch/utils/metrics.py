@@ -13,9 +13,16 @@ esn_ofdm_mimo_tpu/utils/metrics.py).
     guard is a check the curve runners call on what feeds their counters:
     inside the context `check_finite` raises FloatingPointError at the
     first tensor holding a NaN or an infinity, outside it is free;
+  * `span` is a `record_function` range while a torch.profiler trace is
+    recording and a shared no-op context otherwise: the program's own
+    spans (`mc.*`, `graph.*`) land in the same trace as the card's kernels,
+    on its clock, and cost one flag test when nothing traces;
   * `PhaseClock` sums wall ms per named phase into a dict, synchronising
     the card at each mark; `EventClock` sums the card's time between CUDA
-    events per phase, read once at the end (no sync inside a run).
+    events per phase, read once at the end (no sync inside a run). Its
+    events can be captured into a CUDA graph (`external`), where each
+    replay records them again, and read without blocking (`ready`,
+    `phases`): the graphs' body clock (pipelines/graphs.py).
 """
 from __future__ import annotations
 
@@ -54,21 +61,53 @@ class EventClock:
     event recorded at each mark, read by `flush` (which waits for the last
     one) once the caller has the results; on the CPU the wall time at each
     mark. `flush` adds each phase's ms into `out`; with `out` None it
-    does nothing."""
+    does nothing.
 
-    def __init__(self, dev: torch.device, out):
+    With `external`, the events are made to be captured: recorded inside a
+    CUDA graph's capture, each becomes an event-record node that every
+    replay records again, and `ready` and `phases` read the last replay's
+    marks without blocking. Without `begin` the clock starts at its first
+    mark, whose own phase is not timed."""
+
+    def __init__(self, dev: torch.device, out, external: bool = False,
+                 begin: bool = True):
         self.dev, self.out, self.marks = dev, out, []
-        self.t0 = self._stamp() if out is not None else None
+        self.external = external
+        self.t0 = self._stamp() if out is not None and begin else None
+
+    def _event(self):
+        return torch.cuda.Event(enable_timing=True, external=self.external)
 
     def _stamp(self):
         if self.dev.type != "cuda":
             return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
+        ev = self._event()
         ev.record()
         return ev
 
+    def ready(self) -> bool:
+        """Whether every mark has been reached (never blocks; always on the
+        CPU)."""
+        return self.dev.type != "cuda" or all(
+            ev.query() for _, ev in self.marks)
+
+    def phases(self) -> list:
+        """[(phase, ms)]: each mark's time since the one before it (the
+        first since the clock was made). On the card the marks must be
+        `ready`, or CUDA raises."""
+        out, prev = [], self.t0
+        for name, t in self.marks:
+            out.append((name, prev.elapsed_time(t) if self.dev.type == "cuda"
+                        else 1e3 * (t - prev)))
+            prev = t
+        return out
+
     def mark(self, name: str):
-        if self.out is not None:
+        if self.out is None:
+            return
+        if self.t0 is None:
+            self.t0 = self._stamp()
+        else:
             self.marks.append((name, self._stamp()))
 
     def flush(self):
@@ -76,13 +115,9 @@ class EventClock:
             return
         if self.dev.type == "cuda":
             self.marks[-1][1].synchronize()
-        prev = self.t0
-        for name, t in self.marks:
-            ms = (prev.elapsed_time(t) if self.dev.type == "cuda"
-                  else 1e3 * (t - prev))
+        for name, ms in self.phases():
             self.out[name] = self.out.get(name, 0.0) + ms
-            prev = t
-        self.marks, self.t0 = [], prev
+        self.marks, self.t0 = [], self.marks[-1][1]
 
 
 class MetricsLogger:
@@ -107,6 +142,24 @@ class MetricsLogger:
     def close(self) -> None:
         if self._f:
             self._f.close()
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def tracing() -> bool:
+    """Whether a torch.profiler trace is recording (torch's own Python
+    flag, set while a profiler runs)."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """`torch.profiler.record_function(name)` while a trace is recording,
+    so the range lands in the trace beside the card's kernels and on their
+    clock; otherwise a shared no-op context."""
+    if tracing():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

@@ -162,7 +162,7 @@ def test_uncoded_nbf_matches_jax_without_a_decode(ebno, snr_idx,
                         device="cpu", timings={})
     tbf.run_nbf_blocks(_nbf_uncoded(tc), ebno, rng.as_keys(np.asarray(keys)),
                        mark=phases.append)
-    assert phases == ["synth_fit", "detect", "analytics"]
+    assert phases == ["synth", "esn_fit", "detect", "analytics"]
     assert (decode_cuda.launches, decode_cuda.launches_layered,
             tdecode.graph_decodes) == before
     for d in jbf._DETECTORS:

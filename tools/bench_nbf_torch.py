@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Wall time of the full-width block-fading SNR point by phase, with the
-ESN fits inside its `synth_fit` phase split into their pieces, and the
+ESN fits inside its `esn_fit` phase split into their pieces, and the
 same split of the flagship point's ESN fits.
 
     python3 tools/bench_nbf_torch.py [--reps N] [--blocks G] [--device D]
