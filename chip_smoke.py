@@ -121,6 +121,13 @@ Builds the port's nine CUDA kernel sources from esn_ofdm_mimo_tpu_torch/csrc/
      means' ms a step, the bounds by bytes (the kernels line's: one read
      of the pairs a step), and the host ms of launching graphs of several
      node counts on an idle card and behind a 50 ms kernel;
+     [K7 gru train] the zoo's GRU kernel (csrc/gru_train.cu, a port
+     kernel: the JAX package trains rnn_apply's lax.scan under jax.grad)
+     against its plain version (ops/gru_cuda.py, autograd) at the zoo
+     cell's shape, 128 blocks x 522 steps: outputs, losses and every
+     weight gradient within 1e-5 relative, predictions of 18 sequences a
+     block likewise; ms of a training and a prediction launch at 128
+     blocks and at one (the serial chain), the bound, plain ms;
   6. small reference checks: tiny CDL and tiny NBF configurations through
      `cdl_snr_point` / `nbf_snr_point` on the GPU (kernels) and on the CPU
      (plain versions), classical-detector counters within a few bit flips;
@@ -273,8 +280,14 @@ Builds the port's nine CUDA kernel sources from esn_ofdm_mimo_tpu_torch/csrc/
        the plain vmapped loop at that pilot shape, 5 epochs: losses within
        1e-5 relative, ms an epoch of both; the trained GRUs' predictions
        of 16 x 18 rows against rnn_apply's within 1e-4, ms of both;
+       [zoo step] the captured zoo round (make_zoo_step on the zoo
+       cell's configuration, n_res 100, 128 blocks, 50 epochs, 12 dB):
+       two replays launch nothing from Python, a replay equals eager
+       run_zoo_blocks on the same keys; capture and replay walls, the
+       eager wall and a replay's phases (device ms);
        [compare2x2 cli] the CLI at --fast --blocks 2 --epochs 5: its
-       artifacts written and read, K3 and K2 launched on every SNR;
+       artifacts written and read; one step for all SNRs, K3, K2 and K7
+       launched only by its first call's warm-up and capture;
        [dist nccl] a torch.distributed process group of world size 1 on
        NCCL from the variables torchrun sets (maybe_init_distributed):
        run_nbf_curve (mimo_4x8_nbf, 8 blocks) and run_cdl_curve
@@ -400,7 +413,7 @@ def main() -> None:
         make_code
     from esn_ofdm_mimo_tpu_torch.ldpc.decode import ldpc_decode_bp_plain
     from esn_ofdm_mimo_tpu_torch.models import esn_cuda, esn_states_cuda
-    from esn_ofdm_mimo_tpu_torch.ops import analytics, logreg_cuda
+    from esn_ofdm_mimo_tpu_torch.ops import analytics, gru_cuda, logreg_cuda
     from esn_ofdm_mimo_tpu_torch.models.esn import (EsnScale, esn_fit,
                                                     esn_predict, esn_states,
                                                     init_reservoir,
@@ -435,6 +448,7 @@ def main() -> None:
                 (analytics, "launches", "svdvals_small"),
                 (rng, "launches", "threefry"),
                 (logreg_cuda, "launches", "logreg_step"),
+                (gru_cuda, "launches", "gru_train"),
                 # not a kernel: the plain BP of Gallager and pyldpc codes
                 (bp_graph, "graph_decodes", "graph_decode"))
 
@@ -1590,6 +1604,71 @@ def main() -> None:
         "none: esn_ofdm_mimo_tpu/pipelines/cdl.py fit_logreg_1d is plain "
         "jnp (no pl.pallas_call)", 0.0, fit["kernel_ms"], fit["plain_ms"],
         fit["one_read_bytes"], 0.0)
+
+    # ---- [K7 gru train]: the zoo's GRU kernel (csrc/gru_train.cu) against
+    # its plain version (ops/gru_cuda.py: rnn_apply batched over the blocks,
+    # autograd) at the zoo cell's shape: 128 blocks, T = 522 (N 512 + cp 7 +
+    # delay 3), 4 inputs, hidden 32, 4 outputs. Gate: the outputs, the
+    # losses and every weight gradient within 1e-5 of plain relative to the
+    # largest of each (the same fp32 products summed in another order and
+    # contracted into multiply-adds; measured <= 8e-7 on the first card
+    # run, while a wrong gate, index or sign is off by O(1)); the
+    # predictions of 18 sequences a block likewise. Times: a training launch
+    # (an epoch's gradients) and a prediction launch, at 128 blocks and at
+    # one (a single CTA: the recurrence's serial chain, this design's
+    # floor); the bound from the benchmark's frozen count
+    # (benchmark/counts/gru_work.py)
+    from benchmark.counts import gru_work
+    from esn_ofdm_mimo_tpu_torch.models import zoo
+    B7, T7, S7 = 128, 522, 18
+    w7 = zoo.gru_weights(zoo.rnn_init(rng.split(rng.prng_key(3, dev), B7), 4,
+                                      32, 4))
+    # its own generator: the later phases' draws from `gen` stay as they were
+    g7 = torch.Generator(device=dev)
+    g7.manual_seed(7)
+    x7 = torch.randn(B7, T7, 4, generator=g7, device=dev)
+    y7 = 0.3 * torch.randn(B7, T7, 4, generator=g7, device=dev)
+    xs7 = torch.randn(B7, S7, T7, 4, generator=g7, device=dev)
+    got7 = gru_cuda.train(x7, y7, w7)
+    sync()
+    t0 = time.perf_counter()
+    want7 = gru_cuda.train_plain(x7, y7, w7)
+    sync()
+    plain7_ms = 1e3 * (time.perf_counter() - t0)
+
+    def rel7(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    errs7 = [rel7(a, b) for a, b in zip(got7[:2] + tuple(got7[2]),
+                                        want7[:2] + tuple(want7[2]))]
+    _check(max(errs7) <= 1e-5, f"K7 gru train: outputs, losses or gradients "
+                               f"differ from plain by {errs7} relative")
+    with torch.no_grad():
+        err_p7 = rel7(gru_cuda.predict(xs7, w7),
+                      gru_cuda.rnn_apply_blocks(w7, xs7))
+    _check(err_p7 <= 1e-5, f"K7 gru predict: {err_p7} relative to plain")
+    ws7 = gru_cuda.workspace(B7, T7, dev)
+    ms7 = cuda_ms(lambda: gru_cuda.train(x7, y7, w7, ws7), 20)
+    w1 = gru_cuda.GruWeights(*(t[:1] for t in w7))
+    ms7_one = cuda_ms(lambda: gru_cuda.train(x7[:1], y7[:1], w1), 20)
+    ms7_pred = cuda_ms(lambda: gru_cuda.predict(xs7, w7), 20)
+    ms7_pred_one = cuda_ms(lambda: gru_cuda.predict(xs7[:1, :1], w1), 20)
+    work7 = gru_work.train_work(B7, T7)
+    bound7 = _bound(*work7)
+    _log(f"[K7 gru train] {B7} blocks x {T7} steps, hidden 32, 4 in / 4 "
+         f"out: outputs, losses, gradients within {max(errs7):.2e} of plain "
+         f"(tolerance 1e-5; {', '.join(f'{e:.1e}' for e in errs7)}), "
+         f"predictions of {S7} sequences a block within {err_p7:.2e} | a "
+         f"training launch {ms7:.4f} ms ({B7} blocks), {ms7_one:.4f} ms (1 "
+         f"block: the serial chain), bound {bound7[0]:.4f} ms by "
+         f"{bound7[1]} | a prediction launch {ms7_pred:.4f} ms ({B7} x "
+         f"{S7} sequences), {ms7_pred_one:.4f} ms (one) | plain (autograd) "
+         f"{plain7_ms:.1f} ms | {smi}")
+    kernels["gru_train"] = _entry(
+        "gru_train", "gru_train.cu",
+        "none: esn_ofdm_mimo_tpu/models/zoo.py rnn_apply is a lax.scan "
+        "under jax.vmap and jax.grad (no pl.pallas_call)", max(errs7), ms7,
+        plain7_ms, *work7)
+    del x7, y7, xs7, got7, want7, ws7
 
     # ---- 6. small reference checks: GPU kernels vs CPU plain versions ------
     root = rng.prng_key(0)
@@ -2963,7 +3042,8 @@ def main() -> None:
                  f"{json.dumps({k: round(v, 1) for k, v in ph_z.items()})}")
 
         # [compare2x2 gru]: the GRU's per-block training through
-        # torch.nn.GRU (cuDNN), which the path runs, against the plain loop
+        # torch.nn.GRU (cuDNN; models/zoo.py:train_rnn_per_block, which no
+        # pipeline runs since the zoo round took K7) against the plain loop
         # of rnn_apply under vmap at the pilot shape, 5 epochs; then the
         # trained GRUs' predictions at the data shape (18 rows a block)
         # against rnn_apply's with the plain loop's trained weights
@@ -3004,8 +3084,56 @@ def main() -> None:
              f"abs err {err_pg:.3e} (tolerance 1e-4), ms cuDNN "
              f"{ms_pg:.3f}, plain {ms_pp:.3f}")
 
+        # [zoo step]: the captured zoo round (make_zoo_step, the zoo
+        # cell's configuration: mimo_2x2_nbf with the script's reservoir
+        # 100, no code, no fixed-SNR ESN; 128 blocks, 50 epochs, 12 dB)
+        # against eager run_zoo_blocks on the same keys: the same kernels
+        # (K7, capturable Adam) launched from Python, so identical.
+        # Replays launch nothing from Python
+        from esn_ofdm_mimo_tpu_torch.parallel import make_zoo_step
+        from esn_ofdm_mimo_tpu_torch.pipelines import zoo2x2
+        zc2 = dataclasses.replace(
+            zc, num_ofdm_symbols=4000, esn=dataclasses.replace(
+                zc.esn, n_reservoir=100, train_ebno_fixed_db=None))
+        keys_s = [rng.block_keys(root0, 4, torch.arange(i * 128,
+                                                         (i + 1) * 128))
+                  for i in range(3)]
+        step_z = make_zoo_step(zc2, dev, epochs=E_z)
+        sync()
+        t0 = time.perf_counter()
+        first_z = zoo2x2.host_zoo(step_z(12.0, keys_s[0]))
+        capture_s = time.perf_counter() - t0
+        reset_counts()
+        walls_z = []
+        for k_s in keys_s[1:]:
+            t0 = time.perf_counter()
+            rep_z = zoo2x2.host_zoo(step_z(12.0, k_s))
+            walls_z.append(time.perf_counter() - t0)
+        la_rep = read_counts()
+        _check(not any(la_rep.values()),
+               f"zoo step: a replayed call launched from Python: {la_rep}")
+        ph_z = {}
+        zoo2x2.host_zoo(step_z(12.0, keys_s[2], ph_z))
+        sync()
+        t0 = time.perf_counter()
+        eager_z = run_zoo_blocks(zc2, 12.0, keys_s[2], epochs=E_z)
+        eager_s = time.perf_counter() - t0
+        _check(eager_z == rep_z, f"zoo step: a replay {rep_z} differs from "
+                                 f"run_zoo_blocks {eager_z}")
+        _log(f"[zoo step] {zc2.name} n_res 100, uncoded, 128 blocks, "
+             f"{E_z} epochs, 12 dB: first call (build, eager warm-up, "
+             f"capture) {capture_s:.2f} s, replays "
+             f"{', '.join(f'{1e3 * w:.1f}' for w in walls_z)} ms (no "
+             f"launch from Python), equal to eager run_zoo_blocks "
+             f"({eager_s:.2f} s) | device ms of a replay "
+             f"{json.dumps({k: round(v, 2) for k, v in ph_z.items()})}")
+        del step_z
+        graphs.release_graphs()
+
         # [compare2x2 cli]: the CLI once, --fast (N = 256), 2 blocks, 5
-        # epochs, on its 5 SNRs
+        # epochs, on its 5 SNRs: one step, its graph captured at the first
+        # SNR (K3 twice and K2 three times in the warm-up and again in the
+        # capture; K7 five times and twice), replayed at the others
         out_c = os.path.join(tmp, "compare2x2")
         with contextlib.redirect_stdout(io.StringIO()) as so:
             _, _, wall_cc, la_cc = count_run(
@@ -3027,8 +3155,9 @@ def main() -> None:
                        for v in cli_ber["BER"].values())
                and cli_ev == ["run_start"] + ["snr_done"] * n_e
                + ["run_done"]
-               and la_cc["esn_states"] == 2 * n_e
-               and la_cc["esn_predict"] == 3 * n_e,
+               and la_cc["esn_states"] == 2 * 2
+               and la_cc["esn_predict"] == 2 * 3
+               and la_cc["gru_train"] == 2 * (5 + 2),
                f"compare2x2 cli: artifacts {cli_ber}, {sorted(cli_nmse)}, "
                f"events {cli_ev}, launches {la_cc}")
         _log(f"[compare2x2 cli] --fast --blocks 2 --epochs 5 ({n_e} SNRs): "
@@ -3462,6 +3591,8 @@ def _counter_of(kernel: str):
         return "threefry"
     if "logreg_step_kernel" in kernel:
         return "logreg_step"
+    if "gru_train_kernel" in kernel or "gru_predict_kernel" in kernel:
+        return "gru_train"
     return None
 
 

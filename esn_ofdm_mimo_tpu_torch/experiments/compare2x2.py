@@ -8,11 +8,16 @@ Port of esn_ofdm_mimo_tpu/experiments/compare2x2.py: the same flags with the
 same names and defaults, plus `--device` (default `cuda`, which raises
 without a GPU; `cpu` runs everything in plain PyTorch). BER against Eb/N0
 for ESN / Perfect-ZF / LS-ZF / MMSE / CNN / RNN / FNN / ELM on mimo_2x2_nbf
-(uncoded), B blocks an SNR. It writes the reference's artifacts
-(:685-717): BERvsEBNo_esn_all_ml_model.pkl ({"EBN0", "BER"}),
-NMSE_compare.pkl ({"EBN0", "NMSE_train", "NMSE_test"}, means over blocks),
-events.jsonl (run_start, one snr_done per SNR with each phase's wall ms,
-run_done) and, where matplotlib is installed, ber_comparison_system_2.png.
+(uncoded), B blocks an SNR, one call of `parallel/montecarlo.py:
+make_zoo_step` an SNR: on the card the captured `zoo.round` graph, the GRU
+trained by K7, replayed for every SNR after the first captures it. It
+writes the reference's artifacts (:685-717):
+BERvsEBNo_esn_all_ml_model.pkl ({"EBN0", "BER"}), NMSE_compare.pkl
+({"EBN0", "NMSE_train", "NMSE_test"}, means over blocks), events.jsonl
+(run_start, one snr_done per SNR with each phase's ms: on the CPU every
+phase's wall ms, on the card the device ms of esn_fit, detect, cnn, rnn,
+fnn and elm; run_done) and, where matplotlib is installed,
+ber_comparison_system_2.png.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ def main(argv=None):
 
     import torch
 
-    from ..pipelines.zoo2x2 import run_zoo_blocks
+    from ..parallel import make_zoo_step
+    from ..pipelines.zoo2x2 import host_zoo
     from ..utils import rng
     from ..utils.device import resolve_device
     from ..utils.metrics import MetricsLogger
@@ -56,12 +62,12 @@ def main(argv=None):
     log.log("run_start", blocks=blocks, epochs=args.epochs, device=str(dev))
     t0 = time.time()
     root = rng.prng_key(args.seed, dev)
+    step = make_zoo_step(cfg, dev, epochs=args.epochs)
     ber, nmse_train, nmse_test = {}, {}, {}
     for jj, ebno in enumerate(cfg.ebno_db):
         keys = rng.block_keys(root, jj, torch.arange(blocks, device=dev))
         phases: dict = {}
-        out = run_zoo_blocks(cfg, ebno, keys, epochs=args.epochs, device=dev,
-                             timings=phases)
+        out = host_zoo(step(ebno, keys, phases))
         for k, v in out.bit_errors.items():
             ber.setdefault(k, []).append(v / out.total_bits)
         nb = max(out.n_blocks, 1)

@@ -29,10 +29,20 @@ block's gradient is its own loss's, so this is B separate Adams.
 `train_rnn_per_block` does the same for the GRU through `torch.nn.GRU`
 (cuDNN on the card), one call a block, and returns the trained modules
 (`GruBlocks`), which predict the same way; `rnn_apply` stays the plain
-version they are held against. The plain loop of T steps under
+version they are held against. No pipeline runs them: the zoo round
+trains its GRUs with `train_gru_blocks`. The plain loop of T steps under
 vmap launches some ten kernels a step forward and as many backward, and
 took ~15x cuDNN's time on an H100 at the 2x2 comparison's pilot
 (chip_smoke.py's `[compare2x2 gru]` times both).
+
+Every init takes a (2,) key or a (B, 2) batch of keys: a batch gives B
+models stacked along a leading axis, each the init of its own key, so
+`block_models` + `train_stacked` train B blocks' models without making
+them one by one, and `train_gru_blocks` trains B GRUs (`GruWeights`) with
+one launch of K7 a step on the card (ops/gru_cuda.py; its plain version
+elsewhere). These are the routes of the zoo round
+(pipelines/zoo2x2.py:zoo_round), which a CUDA graph captures: Adam takes
+its capturable form there (`capturable`).
 """
 from __future__ import annotations
 
@@ -43,6 +53,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import gru_cuda
+from ..ops.gru_cuda import GruWeights
 from ..utils import rng
 
 
@@ -85,15 +97,22 @@ def normal_init(key: torch.Tensor, shape, var: float) -> torch.Tensor:
     return rng.normal(key, shape) * sqrt32(var)
 
 
+def _zeros(key: torch.Tensor, n: int) -> torch.Tensor:
+    """A zero bias of n entries for each key of a (..., 2) batch."""
+    return torch.zeros(*key.shape[:-1], n, device=key.device)
+
+
 # ---------------- MLP ----------------
 
 def mlp_init(key: torch.Tensor, sizes: Sequence[int]) -> nn.ModuleList:
-    """sizes = (n_in, h1, ..., n_out); weights N(0, 2 / n_in), zero bias."""
+    """sizes = (n_in, h1, ..., n_out); weights N(0, 2 / n_in), zero bias.
+    Like every init here it takes a (2,) key or a (B, 2) batch of keys,
+    whose tree holds B models stacked along a leading axis, each equal to
+    the init of its own key."""
     layers = []
     for a, b in zip(sizes[:-1], sizes[1:]):
-        kw, key = rng.split(key)
-        layers.append(Dense(normal_init(kw, (a, b), 2.0 / a),
-                            torch.zeros(b, device=key.device)))
+        kw, key = rng.split(key).unbind(-2)
+        layers.append(Dense(normal_init(kw, (a, b), 2.0 / a), _zeros(key, b)))
     return nn.ModuleList(layers)
 
 
@@ -118,14 +137,14 @@ def cnn_init(key: torch.Tensor, n_in: int, n_out: int,
     convs = []
     c_prev = n_in
     for c in channels:
-        kw, key = rng.split(key)
+        kw, key = rng.split(key).unbind(-2)
         convs.append(Dense(
             normal_init(kw, (kernel, c_prev, c), 2.0 / (kernel * c_prev)),
-            torch.zeros(c, device=key.device)))
+            _zeros(key, c)))
         c_prev = c
-    kw, key = rng.split(key)
+    kw, key = rng.split(key).unbind(-2)
     head = Dense(normal_init(kw, (c_prev, n_out), 1.0 / c_prev),
-                 torch.zeros(n_out, device=key.device))
+                 _zeros(key, n_out))
     return Params({"convs": nn.ModuleList(convs), "head": head})
 
 
@@ -148,13 +167,13 @@ def cnn_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def rnn_init(key: torch.Tensor, n_in: int, n_hidden: int, n_out: int
              ) -> Params:
-    k1, k2, k3 = rng.split(key, 3)
+    k1, k2, k3 = rng.split(key, 3).unbind(-2)
     return Params({
         "wi": normal_init(k1, (n_in, 3 * n_hidden), 1.0 / n_in),
         "wh": normal_init(k2, (n_hidden, 3 * n_hidden), 1.0 / n_hidden),
-        "bi": torch.zeros(3 * n_hidden, device=key.device),
+        "bi": _zeros(key, 3 * n_hidden),
         "head": Dense(normal_init(k3, (n_hidden, n_out), 1.0 / n_hidden),
-                      torch.zeros(n_out, device=key.device))})
+                      _zeros(key, n_out))})
 
 
 def rnn_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -281,10 +300,28 @@ def train_regressor_per_block(apply_fn: Callable,
     """`train_regressor` of models[b] on (X[b], Y[b]) for every block b at
     once: X (B, ...), Y (B, ...). Returns TrainResult(BlockModels, losses
     (B, epochs)), each block's loss before each step's update."""
-    bm = stack_blocks(apply_fn, models)
-    B = len(models)
+    return train_stacked(stack_blocks(apply_fn, models), X, Y, epochs, lr)
+
+
+def block_models(apply_fn: Callable, stacked: nn.Module) -> BlockModels:
+    """BlockModels of one tree whose tensors hold B models stacked along a
+    leading axis (an init of a (B, 2) key batch): the same stack as
+    `stack_blocks` of the B models, without making them one by one."""
+    params = {f"p.{n}": t.detach().requires_grad_()
+              for n, t in stacked.named_parameters()}
+    buffers = {f"p.{n}": t for n, t in stacked.named_buffers()}
+    return BlockModels(_Applied(apply_fn, stacked), params, buffers)
+
+
+def train_stacked(bm: BlockModels, X: torch.Tensor, Y: torch.Tensor,
+                  epochs: int = 50, lr: float = 1e-3,
+                  capturable: bool = False) -> TrainResult:
+    """`train_regressor_per_block` of BlockModels, trained in place.
+    `capturable` takes Adam's form that a CUDA graph can capture (its step
+    count on the card; the same update in another rounding order)."""
+    B = X.shape[0]
     opt = torch.optim.Adam(bm.params.values(), lr=lr, betas=(0.9, 0.999),
-                           eps=1e-8)
+                           eps=1e-8, capturable=capturable)
     losses = torch.empty(B, epochs, device=X.device)
     for i in range(epochs):
         opt.zero_grad(set_to_none=True)
@@ -347,6 +384,37 @@ def train_rnn_per_block(models: Sequence[Params], X: torch.Tensor,
         opt.step()
         losses[:, i] = loss.detach()
     return TrainResult(params=grus, losses=losses)
+
+
+def gru_weights(p: Params) -> GruWeights:
+    """The GruWeights of an `rnn_init` tree (stacked: of a (B, 2) key
+    batch)."""
+    return GruWeights(p.wi, p.wh, p.bi, p.head.w, p.head.b)
+
+
+def train_gru_blocks(w: GruWeights, X: torch.Tensor, Y: torch.Tensor,
+                     epochs: int = 50, lr: float = 1e-3,
+                     capturable: bool = False) -> TrainResult:
+    """`train_regressor_per_block(rnn_apply, ...)` of stacked GRU weights
+    with one call of `ops/gru_cuda.train` a step: K7 on the card (one
+    launch gives every block's gradients), the plain version elsewhere.
+    X (B, 1, T, n_in), Y (B, 1, T, n_out): one sequence a block. Returns
+    TrainResult(trained GruWeights, losses (B, epochs)). `capturable` as in
+    `train_stacked`."""
+    p = GruWeights(*(t.detach().clone() for t in w))
+    x, y = X[:, 0], Y[:, 0]
+    ws = (gru_cuda.workspace(x.shape[0], x.shape[1], x.device)
+          if x.device.type == "cuda" else None)
+    opt = torch.optim.Adam(p, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                           capturable=capturable)
+    losses = torch.empty(x.shape[0], epochs, device=x.device)
+    for i in range(epochs):
+        _, loss, grads = gru_cuda.train(x, y, p, ws)
+        for t, g in zip(p, grads):
+            t.grad = g
+        opt.step()
+        losses[:, i] = loss
+    return TrainResult(params=p, losses=losses)
 
 
 def window_flatten(x: torch.Tensor, window: int = 8) -> torch.Tensor:

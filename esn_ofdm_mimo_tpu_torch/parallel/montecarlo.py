@@ -54,6 +54,10 @@ top-up, checkpoints and progress, and `assemble_curve` into a
 the scan step a call with one, a `step_factory` (the fault-injection hook)
 one round a call; the top-up through the scan step.
 
+The 2x2 model-zoo comparison: `make_zoo_step`, one round of
+pipelines/zoo2x2.py:ZooRounds a call, a CUDA graph on the card (the
+compare2x2 CLI's route); `run_zoo_blocks` is its eager form.
+
 Counters are summed in int64, so the JAX package's int32 guards go away.
 `_call_with_retry` re-runs a call on a runtime failure: calls are pure
 functions of their keys, so a retry is exact.
@@ -94,6 +98,7 @@ from ..pipelines.cdl import (CDL_DETECTORS, CdlCalData, CdlCounts, CdlRounds,
                              cdl_decode_counters, fit_calibrators,
                              run_cdl_cal_blocks, run_cdl_detect_llrs)
 from ..pipelines.common import EbnoRow, ebno_rows
+from ..pipelines.zoo2x2 import ZooCounts, ZooRounds
 from ..pipelines.graphs import GraphCaptureError, cached_graphs, graph_key
 from ..utils import rng
 from ..utils.device import resolve_device
@@ -707,6 +712,44 @@ def make_fused_nbf_grid(cfg: SimConfig, blocks_per_round: int, rounds: int,
                 for j in range(len(ebnos))]
 
     return grid
+
+
+def _zoo_rounds(cfg: SimConfig, G: int, dev: torch.device,
+                epochs: int) -> ZooRounds:
+    """The cached ZooRounds of (cfg, G blocks, card, epochs)."""
+    key = graph_key(cfg, G, dev, f"zoo.e{int(epochs)}")
+    return cached_graphs(key, lambda: ZooRounds(key[1], G, key[3], epochs))
+
+
+def make_zoo_step(cfg: SimConfig, device=None, epochs: int = 50):
+    """The 2x2 model-zoo comparison a call: step(ebno_db, keys (G, 2),
+    timings=None) -> ZooCounts of tensors on the device (bit errors int64,
+    NMSE sums float32), read on the host with
+    pipelines/zoo2x2.py:host_zoo; the same numbers as `run_zoo_blocks` on
+    the same keys.
+
+    The Eb/N0's row and the keys are copied into the ZooRounds buffers
+    (device to device) and its body run: on the card the `zoo.round` CUDA
+    graph, captured on the first call of a (cfg, G, epochs) and replayed
+    after, so a call launches nothing from Python; the GRU trains and
+    predicts through K7 there. On the CPU the body runs eagerly. On either
+    device the results equal `run_zoo_blocks`'s on the same keys, which
+    runs the same round eagerly. `timings`, when given, receives each phase's ms
+    (ZooRounds.run); on the card that waits for the call."""
+    dev = resolve_device(device)
+
+    def step(ebno_db: float, keys, timings: dict | None = None
+             ) -> ZooCounts:
+        keys = rng.as_keys(keys, dev)
+        with span("mc.step.zoo_round"), _on(dev):
+            g = _zoo_rounds(cfg, keys.shape[0], dev, epochs)
+            _stage_row(g, cfg, ebno_db)
+            with span("mc.stage"):
+                g.keys.copy_(keys)
+            g.run(timings)
+            return g.counts()
+
+    return step
 
 
 @dataclasses.dataclass

@@ -4,16 +4,17 @@ graph sets keyed by configuration, blocks a round and card. The CDL and
 block-fading pipelines build their round sets from these.
 
 Each body has a name (`cdl.cal`, `cdl.fit`, `cdl.detect`, `cdl.decode`,
-`nbf.round`, `chunk.cal`) and a record: its replays and captures, each
-replay's host ms (the launch, on the host's clock, always), and, while a
-torch.profiler trace is recording, its body clock. Every traced replay
-gets its device ms from a fresh pair of CUDA events around it, outside the
-graph. The body calls `mark(phase)` as each of its phases ends (`synth`,
-`esn_fit`, `detect`, ...); of these only the ends of `synth` and `esn_fit`
-(`CAPTURED_MARKS`, which time the ESN fit) are captured into the graph, as
-event-record nodes, so every replay records them again and only a body's
-last replay before its next is readable; a body without them captures
-none. The samples are harvested without blocking, before each replay and
+`nbf.round`, `chunk.cal`, `zoo.round`) and a record: its replays and
+captures, each replay's host ms (the launch, on the host's clock, always),
+and, while a torch.profiler trace is recording, its body clock. Every
+traced replay gets its device ms from a fresh pair of CUDA events around
+it, outside the graph. The body calls `mark(phase)` as each of its phases
+ends (`synth`, `esn_fit`, `detect`, ...); of these only the ends of
+`synth` and `esn_fit` (`CAPTURED_MARKS`, which time the ESN fit; the zoo
+round names its own, pipelines/zoo2x2.py:ZOO_MARKS) are captured into the
+graph, as event-record nodes, so every replay records them again and only
+a body's last replay before its next is readable; a body without them
+captures none. The samples are harvested without blocking, before each replay and
 when `body_stats()` is asked: a pair not yet complete waits for a later
 harvest; a replay's marks not yet complete when the next replay is issued
 are dropped and counted. On the CPU every phase is marked, on the host's
@@ -56,12 +57,13 @@ def _no_mark(phase: str):
     """The phase mark of an untimed run of a body."""
 
 
-def capture_graph(body, dev: torch.device, name: str):
+def capture_graph(body, dev: torch.device, name: str,
+                  marks: tuple = CAPTURED_MARKS):
     """Run `body(mark)` once eagerly on a side stream with a mark that does
     nothing (the warm-up: nvcc builds, cuFFT plans, codes' host
     construction, the kernels' attribute and occupancy queries, device
     constants), then capture one call of it as a CUDA graph in the card's
-    shared pool, its CAPTURED_MARKS as event-record nodes. Returns (graph,
+    shared pool, the phase ends `marks` as event-record nodes. Returns (graph,
     the capture's host ms, bytes the pool grew by, the marks' EventClock or
     None where the body made none). Raises GraphCaptureError where the
     capture fails, naming the port's line that broke it."""
@@ -81,11 +83,11 @@ def capture_graph(body, dev: torch.device, name: str):
             # after the capture's own empty_cache: what the body reserves
             # from here on is the pool's growth
             reserved = torch.cuda.memory_reserved(dev)
-            marks = EventClock(dev, {}, external=True, begin=False)
+            clock = EventClock(dev, {}, external=True, begin=False)
 
             def mark(phase):
-                if phase in CAPTURED_MARKS:
-                    marks.mark(phase)
+                if phase in marks:
+                    clock.mark(phase)
             body(mark)
             pool_bytes = torch.cuda.memory_reserved(dev) - reserved
     except Exception as e:
@@ -99,7 +101,7 @@ def capture_graph(body, dev: torch.device, name: str):
                                 f"failed at {at}: {e}") from e
     pool[1] += 1
     return (graph, 1e3 * (time.perf_counter() - t0), pool_bytes,
-            marks if marks.t0 is not None else None)
+            clock if clock.t0 is not None else None)
 
 
 def _release_graph(graph, dev: torch.device):
@@ -219,15 +221,17 @@ class Body:
     given, as each of its phases ends. On the card it is captured once as
     a CUDA graph and `run` replays it; on the CPU `run` calls the
     function. `name` names its spans, its record (module docstring) and a
-    failed capture."""
+    failed capture. `marks` are the phase ends its graph captures
+    (CAPTURED_MARKS unless the body names its own)."""
 
-    def __init__(self, fn, name: str, dev: torch.device):
+    def __init__(self, fn, name: str, dev: torch.device,
+                 marks: tuple = CAPTURED_MARKS):
         self.fn, self.graph, self.dev, self.name = fn, None, dev, name
         self.record = BodyRecord(name)
         self._replay_span = f"graph.replay.{name}"
         if dev.type == "cuda":
             (self.graph, self.record.capture_ms, self.record.pool_bytes,
-             self.record.marks) = capture_graph(fn, dev, name)
+             self.record.marks) = capture_graph(fn, dev, name, marks)
             self.record.captures += 1
         _RECORDS.append(self.record)
 
@@ -260,6 +264,16 @@ class Body:
             if timed:
                 pair.mark("replay")
                 rec.pending.append(pair)
+
+    def last_phases(self) -> list:
+        """[(phase, ms)] of the captured marks of the last replay, waiting
+        for its last mark (a sync of the host; empty on the CPU or without
+        marks)."""
+        marks = self.record.marks
+        if self.graph is None or marks is None or not marks.marks:
+            return []
+        marks.marks[-1][1].synchronize()
+        return marks.phases()
 
     def release(self):
         if self.graph is not None:

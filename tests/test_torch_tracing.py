@@ -182,11 +182,11 @@ def test_incomplete_marks_are_dropped_not_waited_on(monkeypatch):
     monkeypatch.setattr(_StubEvent, "done", False)
     card = torch.device("cuda", 0)
 
-    def capture(fn, dev, name):
-        marks = metrics.EventClock(dev, {}, external=True, begin=False)
-        for phase in graphs.CAPTURED_MARKS:
-            marks.mark(phase)
-        return _StubGraph(), 2.0, 512, marks
+    def capture(fn, dev, name, marks=graphs.CAPTURED_MARKS):
+        clock = metrics.EventClock(dev, {}, external=True, begin=False)
+        for phase in marks:
+            clock.mark(phase)
+        return _StubGraph(), 2.0, 512, clock
     monkeypatch.setattr(graphs, "capture_graph", capture)
     body = graphs.Body(lambda mark: None, "nbf.round", card)
     assert (body.capture_ms, body.pool_bytes) == (2.0, 512)
