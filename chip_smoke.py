@@ -61,6 +61,21 @@ Builds the port's nine CUDA kernel sources from esn_ofdm_mimo_tpu_torch/csrc/
      2 rows] the same at the compare2x2 CLI's --fast run (2 blocks, T =
      266), noise 0; each line prints the tiling
      the wrapper chose (rows a block, blocks, blocks an SM, shared memory);
+     [K2 tf32 ...] at each of those shapes (and [K2 carried] below) K2's
+     TF32 build, the route of the configurations' recurrence_precision
+     None, against the plain TF32 form (esn_predict(..., tf32=True)) at
+     atol 5e-4 / rtol 1e-3, with the plain TF32 form's distance from the
+     fp32 one, the TF32 and fp32 builds' ms in turns, and one launch
+     counted in `launches_tf32`; [K2 tf32 short ...] the rounding rule
+     itself, one step from a carried state (flagship and NBF: a drawn
+     state; carried: the fit's): the build within a tenth of the plain
+     TF32 form's distance from the fp32 one; [K2 tf32 rounding] the rms of
+     the pre-activation's TF32-vs-fp32 difference at a fit's harvested
+     states beside the state noise's, and the noise band on the TF32 route;
+     [K2 siso highest] precision "highest" launches the fp32 build,
+     identical to a call with no precision; [K2 route] (before the result
+     lines) the TF32 share of K2's launches on each counted run, all of
+     them on the cells' paths;
   4. K3, the ESN state harvest (csrc/esn_states.cu, a thread-block cluster
      kernel), against plain esn_states at the mimo_4x8_nbf fit shape (128 x
      522 x 600) and the flagship fit shape (128 x 138 x 300), the same
@@ -455,6 +470,7 @@ def main() -> None:
     def reset_counts():
         for mod, attr, _ in counters:
             setattr(mod, attr, 0)
+        esn_cuda.launches_tf32 = 0
 
     def read_counts() -> dict:
         return {name: getattr(mod, attr) for mod, attr, name in counters}
@@ -492,6 +508,23 @@ def main() -> None:
                f"{what} noise RMS {r_k} outside 0.8-1.25x the plain "
                f"version's {r_p}")
         return r_k, r_p
+
+    def tf32_close(got, want, what: str) -> float:
+        """K2's TF32 build against the plain TF32 form (esn_predict(...,
+        tf32=True)): atol 5e-4, rtol 1e-3. The tensor cores round a tile's
+        sum otherwise than fp32 multiply-adds, and a run compounds it over
+        its steps; the plain TF32 form itself lies up to ~4e-4 from the fp32
+        one at these shapes."""
+        sync()
+        err = float((got - want).abs().max())
+        _check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+               f"{what} output has the wrong shape or is not finite")
+        _check(torch.allclose(got, want, atol=5e-4, rtol=1e-3),
+               f"{what} differs from the plain TF32 form (max abs err {err})")
+        return err
+
+    # K2 launches by route, per counted run: (what, TF32 launches, all)
+    k2_routes = []
 
     # ---- 1. device and build ------------------------------------------------
     smi = subprocess.run(
@@ -983,6 +1016,107 @@ def main() -> None:
          f"bound {kernels['esn_predict']['bound_ms']:.4f} ms "
          f"({k2_work[1] / 1e9:.1f} GFLOP)")
 
+    def k2_tf32(r, x, W, nf, label: str, reps: int = 3, carry=None):
+        """K2's TF32 build (precision None, the configurations' route)
+        against the plain TF32 form at noise 0, one launch counted; its ms
+        beside the fp32 build's in the same turns. Returns (max abs err, its
+        ms)."""
+        n0, t0 = esn_cuda.launches, esn_cuda.launches_tf32
+        run = lambda: esn_cuda.esn_predict_cuda(                 # noqa: E731
+            r, scale, W, x, nf, 0, init_carry=carry, precision=None)
+        if not esn_cuda.tf32_built(r.Wt.shape[0]):
+            run()
+            _check(esn_cuda.launches_tf32 == t0,
+                   f"K2 tf32 {label}: a width with no TF32 build launched one")
+            _log(f"[K2 tf32 {label}] n_res {r.Wt.shape[0]}: no TF32 build "
+                 f"at this width (csrc/esn_predict_core.cuh:tf32_width); "
+                 f"precision None launches the fp32 build")
+            return None, None
+        got = run()
+        _check((esn_cuda.launches - n0, esn_cuda.launches_tf32 - t0) == (1, 1),
+               f"K2 tf32 {label}: precision None did not launch the TF32 "
+               f"build once")
+        want = esn_predict(r, scale, W, x, nf, init_carry=carry, tf32=True)
+        want32 = esn_predict(r, scale, W, x, nf, init_carry=carry)
+        err = tf32_close(got, want, f"K2 tf32 {label}")
+        ms_t = cuda_ms(run, reps)
+        ms_f = cuda_ms(lambda: esn_cuda.esn_predict_cuda(
+            r, scale, W, x, nf, 0, init_carry=carry), reps)
+        plan = esn_cuda.predict_tiling(
+            x.shape[0], r.Wt.shape[0], x.shape[2], W.shape[2], n_sm,
+            tf32=True)
+        _log(f"[K2 tf32 {label}] rows {x.shape[0]} T {x.shape[1]} n_res "
+             f"{r.Wt.shape[0]} ({tiling_str(plan)}): against plain TF32 max "
+             f"abs err {err:.3e} rms {rms(got - want):.3e} (tolerance atol "
+             f"5e-4, rtol 1e-3) | plain TF32 against plain fp32 max "
+             f"{float((want - want32).abs().max()):.3e} rms "
+             f"{rms(want - want32):.3e} | TF32 {ms_t:.3f} ms, fp32 "
+             f"{ms_f:.3f} ms ({ms_f / ms_t:.2f}x)")
+        return err, ms_t
+
+    def k2_tf32_short(r, x, W, label: str, carry=None):
+        """The rounding rule itself, over one step from a carried state
+        (n_forget 0, noise 0), before the runs' drift swamps it: the TF32
+        build must lie within a tenth of the plain TF32 form's own distance
+        from the plain fp32 one, and the fp32 form at least half that
+        distance away. A build that kept fp32 operands, or truncated S or Wt
+        instead of rounding them to nearest, lies about as far from the TF32
+        form as fp32 does. From the third step on, the last-bit differences
+        of the two forms' states flip roundings, and the build drifts to a
+        tenth to a half of that distance (ratios 0.07-0.58 over 3-10 steps
+        at these shapes, NVIDIA H100 80GB HBM3). Without `carry`, a state
+        drawn from a generator of its own, |s| < 0.8."""
+        if carry is None:
+            g_c = torch.Generator(device=dev)
+            g_c.manual_seed(261)
+            carry = ((torch.rand(x.shape[0], r.Wt.shape[0], generator=g_c,
+                                 device=dev) * 2 - 1) * 0.8,
+                     torch.randn(x.shape[0], W.shape[2], generator=g_c,
+                                 device=dev))
+        x = x[:, :1].contiguous()
+        got = esn_cuda.esn_predict_cuda(r, scale, W, x, 0, 0,
+                                        init_carry=carry, precision=None)
+        want = esn_predict(r, scale, W, x, 0, init_carry=carry, tf32=True)
+        want32 = esn_predict(r, scale, W, x, 0, init_carry=carry)
+        sync()
+        d_t, d_f, d_r = (float((a - b).abs().max()) for a, b in (
+            (got, want), (got, want32), (want, want32)))
+        _check(d_r > 0 and d_t <= 0.1 * d_r and d_f >= 0.5 * d_r,
+               f"K2 tf32 short {label}: against plain TF32 {d_t:.3e}, "
+               f"against plain fp32 {d_f:.3e}, the two plain forms "
+               f"{d_r:.3e} apart: the build does not round as round_tf32")
+        _log(f"[K2 tf32 short {label}] rows {x.shape[0]} T {x.shape[1]} "
+             f"n_res {r.Wt.shape[0]}, n_forget 0: max abs err against plain "
+             f"TF32 {d_t:.3e}, against plain fp32 {d_f:.3e}, plain TF32 - "
+             f"plain fp32 {d_r:.3e} (needs TF32 <= 0.1x and fp32 >= 0.5x "
+             f"of it; ratio {d_t / d_r:.4f})")
+
+    k2t_err, k2t_ms = k2_tf32(res, inputs, Wt_out, n_forget, "flagship")
+    k2_tf32_short(res, inputs, Wt_out, "flagship")
+    # the noise band on the TF32 route, and the size of its rounding: the
+    # rms of the pre-activation's TF32-vs-fp32 difference at states of a
+    # fit's harvest beside that of the state noise (0.001 / sqrt(12))
+    # the noise and the teachers from generators of their own: the later
+    # phases' inputs and noise stay those of the shared ones
+    g_st = torch.Generator(device=dev)
+    g_st.manual_seed(26)
+    r_kt, r_pt = noise_band(
+        esn_cuda.esn_predict_cuda(noisy, scale, Wt_out, inputs, n_forget,
+                                  12345, precision=None),
+        esn_predict(noisy, scale, Wt_out, inputs, n_forget, g_st, tf32=True),
+        esn_predict(res, scale, Wt_out, inputs, n_forget, tf32=True),
+        "K2 tf32")
+    st = esn_states(res, scale, inputs[:1024], 0.5 * torch.randn(
+        1024, T, Wt_out.shape[2], generator=g_st, device=dev))
+    st = st.reshape(-1, st.shape[-1])
+    d_pre = rms(esn_cuda.round_tf32(st) @ esn_cuda.round_tf32(res.Wt)
+                - st @ res.Wt)
+    _log(f"[K2 tf32 rounding] pre-activation TF32 - fp32 rms {d_pre:.3e} "
+         f"over {st.shape[0]} harvested states (state rms {rms(st):.3e}) | "
+         f"state noise rms {1e-3 / 12 ** 0.5:.3e} | noise 1e-3 on the TF32 "
+         f"route: rms kernel {r_kt:.4e} plain {r_pt:.4e}")
+    del st
+
     # K2 on batches no tile height divides, and smaller than the SM count;
     # the summation order differs from the plain matmuls': atol 1e-4, rtol 1e-3
     for B_r, G_r in ((B - 37, (B - 37) // 37), (100, 50)):
@@ -994,6 +1128,7 @@ def main() -> None:
             esn_predict(res, scale, W_r, x_r, n_forget), f"K2 ragged {B_r}")
         _log(f"[K2 ragged] rows {B_r} G {G_r} Dg {B_r // G_r} "
              f"({k2_tiling(res, x_r, W_r)}): max abs err {err_r:.3e}")
+        k2_tf32(res, x_r, W_r, n_forget, f"ragged {B_r}")
     del x_r, W_r
 
     # K2 at the NBF detect shape: n_res = 600 (the 10 x 64 neuron build)
@@ -1016,6 +1151,9 @@ def main() -> None:
     _check(k2n_ms < k2n_plain_ms,
            f"K2 at the NBF shape ({k2n_ms} ms) is not below its plain "
            f"version ({k2n_plain_ms} ms)")
+    k2n_t_err, k2n_t_ms = k2_tf32(res_n, inputs_n, Wt_out_n, n_forget_n,
+                                  "nbf", reps=2)
+    k2_tf32_short(res_n, inputs_n, Wt_out_n, "nbf")
     # K4 at the same shape: 18 rows a block over runs of 18 touch 3 readouts
     k4n_plan = esn_cuda.grouped_plan(
         inputs_n.shape[0], G, res_n.Wt.shape[0], inputs_n.shape[2],
@@ -1050,6 +1188,21 @@ def main() -> None:
              f"{r.Wt.shape[0]} n_in {x.shape[2]} n_out {W.shape[2]} G {G_c} "
              f"({k2_tiling(r, x, W)}): max abs err {err:.3e} | kernel "
              f"{ms:.3f} ms plain {plain:.3f} ms bound {b_ms:.4f} ms ({by})")
+        if label == "siso":
+            # the preset's "highest": the fp32 build, as a call with no
+            # precision (its output's digest: tools/k2_fp32_digest.py
+            # compares it with another tree's)
+            n0, t0 = esn_cuda.launches, esn_cuda.launches_tf32
+            hi = esn_cuda.esn_predict_cuda(r, scale, W, x, nf, 0,
+                                           precision="highest")
+            _check(torch.equal(hi, esn_cuda.esn_predict_cuda(
+                       r, scale, W, x, nf, 0))
+                   and (esn_cuda.launches - n0,
+                        esn_cuda.launches_tf32 - t0) == (2, 0),
+                   "K2 siso: precision \"highest\" is not the fp32 build")
+            _log("[K2 siso highest] the fp32 build, identical to a call with "
+                 "no precision, no TF32 launch")
+        k2_tf32(r, x, W, nf, label)
 
     # the siso_qpsk_awgn detect shape: one block a round, 399 data symbols,
     # T = 512, n_in = n_out = 2, n_res = 200
@@ -1299,6 +1452,10 @@ def main() -> None:
                     init_carry=carry_r), "K2 carried ragged")
     _log(f"[K2 carried ragged] rows {B_c}, one readout and one carry a row "
          f"({k2_tiling(res, inputs[:B_c], W_c)}): max abs err {err_cr:.3e}")
+    k2_tf32(res, inputs, Wt_out, n_forget, "carried", carry=carry)
+    k2_tf32_short(res, inputs, Wt_out, "carried", carry=carry)
+    k2_tf32(res, inputs[:B_c].contiguous(), W_c, n_forget, "carried ragged",
+            carry=carry_r)
     del pg, pk, pp, pp_c, inputs, W_c, carry_r
 
     # ---- 5b. K1-layered: the layered BP decoder vs its plain version --------
@@ -1741,9 +1898,13 @@ def main() -> None:
         sync()
         wall = time.perf_counter() - t0
         launches = read_counts()
+        k2_tf32_n = esn_cuda.launches_tf32
         if traced:
             launches = dict(_traced_launches(per, launches),
                             graph_decode=launches["graph_decode"])
+            k2_tf32_n = sum(n for name, (_, n) in per.items()
+                            if _is_k2_tf32(name))
+        k2_routes.append((what, k2_tf32_n, launches["esn_predict"]))
         _check(all(launches[k] > 0 for k in need),
                f"{what}: a kernel of the path was never launched: {launches}")
         _check("graph_decode" in need or launches["graph_decode"] == 0,
@@ -2077,6 +2238,9 @@ def main() -> None:
         la = _traced_launches(per, la_py)
         for k, v in la.items():
             launches_total[k] += v
+        k2_routes.append((f"{what} (trace)", sum(
+            n for name, (_, n) in per.items() if _is_k2_tf32(name)),
+            la["esn_predict"]))
         _check(not any(la_py.values()),
                f"{what}: the replays launched kernels from Python: {la_py}")
         g = cdl_pipe.cal_graph(c, 12.0, keys_c[0])
@@ -3115,9 +3279,12 @@ def main() -> None:
         ph_z = {}
         zoo2x2.host_zoo(step_z(12.0, keys_s[2], ph_z))
         sync()
+        reset_counts()
         t0 = time.perf_counter()
         eager_z = run_zoo_blocks(zc2, 12.0, keys_s[2], epochs=E_z)
         eager_s = time.perf_counter() - t0
+        k2_routes.append(("zoo step eager", esn_cuda.launches_tf32,
+                          esn_cuda.launches))
         _check(eager_z == rep_z, f"zoo step: a replay {rep_z} differs from "
                                  f"run_zoo_blocks {eager_z}")
         _log(f"[zoo step] {zc2.name} n_res 100, uncoded, 128 blocks, "
@@ -3498,6 +3665,17 @@ def main() -> None:
         nbf_fused()
         _profile_main_path("nbf step", nbf_fused, 1e3 * best_n)
 
+    # K2's route on each counted run: the cells' paths (C's chunks, A's
+    # point, B's round, Z's round) take the TF32 build at every launch
+    cells = ("cal chunks", "cdl snr step", "nbf step", "zoo step")
+    for what, n_tf32, n_k2 in k2_routes:
+        if n_k2:
+            _log(f"[K2 route] {what}: {n_tf32} of {n_k2} K2 launches TF32")
+        if what.startswith(cells) and n_k2:
+            _check(n_tf32 == n_k2,
+                   f"{what}: {n_tf32} of {n_k2} K2 launches took the TF32 "
+                   f"build")
+
     # ---- 8. result lines ----------------------------------------------------
     for name, n in launches_total.items():
         if name in kernels:
@@ -3570,6 +3748,15 @@ def _traced_launches(per: dict, counts: dict) -> dict:
         if _counter_of(name):
             la[_counter_of(name)] += n
     return la
+
+
+def _is_k2_tf32(kernel: str) -> bool:
+    """Whether a traced kernel name is K2's TF32 build: predict_kernel<...,
+    false, 0, true>."""
+    if "predict_kernel<" not in kernel:
+        return False
+    args = kernel.split("predict_kernel<")[1].split(",")
+    return len(args) > 4 and args[4].strip().startswith("true")
 
 
 def _counter_of(kernel: str):

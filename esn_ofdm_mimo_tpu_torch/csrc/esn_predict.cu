@@ -1,4 +1,5 @@
-// Fused ESN predict (detect) recurrence, Hopper, fp32 (K2).
+// Fused ESN predict (detect) recurrence, Hopper, fp32 or a TF32 recurrence
+// product (K2).
 //
 // Replaces the TPU kernel esn_ofdm_mimo_tpu/models/esn_pallas.py:
 // _predict_kernel (launched by esn_predict_pallas). For every batch row it
@@ -60,6 +61,39 @@
 //     plain version's matmuls by rounding only (compared at atol 1e-4,
 //     rtol 1e-3).
 //
+// The TF32 build (esn_predict_launch_tf32; the wrapper's route "tf32", for
+// EsnConfig.recurrence_precision None: the JAX package's 1-pass bf16
+// recurrence dot, which TF32's 10 mantissa bits exceed). The fp32 product
+// is held at the SIMT FMA pipe (~4.6 ms of the flagship's ~8.6 at 1.755
+// GHz), so the state rows of Wc go to the tensor cores:
+//   * mma.sync m16n8k8 TF32 with fp32 sums, M = the tile's rows (5 m-tiles
+//     for 72 rows, 2 for 20), N = 8 neurons (a warp's ring columns are
+//     runs of 8 consecutive neurons), K = a chunk of 8 Wc rows: each warp
+//     keeps streaming its own columns through its own ring, so the weight
+//     stream and the four barriers a step are the fp32 build's. wgmma would
+//     want 64-row tiles: 148 of them at the flagship's 9,472 rows, two
+//     waves on 132 SMs;
+//   * the operands are TF32 values, rounded to nearest (ties away): Wt by
+//     the wrapper, the state once a step, when the readout has read s' in
+//     fp32 (a carried s0 as it is loaded); the fragments are then plain
+//     shared-memory loads, conflict-free (ring rows padded where needed);
+//   * the [u; o] rows stay fp32 multiply-adds, into the MMA accumulators,
+//     as does everything after the product (tanh, noise, readout);
+//   * 256 threads a block at every tile height: with 128, one warp an SM
+//     sub-partition exposed every fragment load and MMA latency (the NBF
+//     shape ran 59 ms, slower than fp32), and 20 n-tiles of accumulators
+//     spilled.
+// What bounds it (chip runs of ablated builds, NVIDIA H100 80GB HBM3,
+// 700 W): at the flagship shape ~5.9 ms, of which the MMAs ~0.6, the fp32
+// [u; o] rows ~0.6-0.9, the weight stream ~0.3; the rest is what the fp32
+// build also spends outside its product (readout through L1, tanh, the
+// barriers) and the fragment loads. At the NBF shape ~25 ms, of which the
+// 1.7 MB weight stream a block and step from L2 ~6. The MMAs themselves are
+// no longer the bound: the next steps are overlapping the product with
+// the readout and the epilogue, and the io rows. Its outputs are held
+// against esn_predict(..., tf32=True) at atol 5e-4, rtol 1e-3: the tensor
+// cores round a tile's sum otherwise than fp32 FMAs.
+//
 // Times (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W) are kept in
 // PERF.md, beside those of the 64-row, barrier-per-chunk design this one
 // replaced.
@@ -86,4 +120,32 @@ extern "C" int esn_predict_launch(const float* u_fm, const float* wc,
                                         n_res, n_in, n_out, Dg, n_forget,
                                         rows, height, 0, noise,
                                         teacher_scaling, seed, stream);
+}
+
+// Whether the TF32 build has this reservoir width (tf32_width, the one list
+// of them): models/esn_cuda.py launches the fp32 build at the others.
+extern "C" int esn_predict_has_tf32(int n_res) {
+  return n_res > 0 && esn_predict::tf32_width((n_res + 63) / 64);
+}
+
+// The TF32 build (models/esn_cuda.py, route "tf32"): the same operands with
+// the state rows of wc rounded to TF32.
+extern "C" long long esn_predict_smem_bytes_tf32(int n_res, int n_in, int n_out,
+                                                 int height, int P) {
+  return (long long)esn_predict::smem_bytes(n_res, n_in, n_out, height, 0, true);
+}
+
+extern "C" int esn_predict_launch_tf32(const float* u_fm, const float* wc,
+                                       const float* wout, float* out,
+                                       const float* s0, const float* o0, int B,
+                                       int T, int n_res, int n_in, int n_out,
+                                       int Dg, int n_forget, int rows,
+                                       int height, float noise,
+                                       float teacher_scaling,
+                                       const unsigned long long* seed,
+                                       void* stream) {
+  return esn_predict::launch_any<false, true>(u_fm, wc, wout, out, s0, o0, B,
+                                              T, n_res, n_in, n_out, Dg,
+                                              n_forget, rows, height, 0, noise,
+                                              teacher_scaling, seed, stream);
 }

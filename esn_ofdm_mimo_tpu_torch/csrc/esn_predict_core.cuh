@@ -3,8 +3,9 @@
 // memory) and esn_predict_ablate.cu (K5, builds with parts switched off). The
 // design note is at the head of esn_predict.cu; this header holds the one
 // kernel all three instantiate, templated on the reservoir width, the tile
-// height, the readout and a mask of parts switched OFF (0 for K2 and K4,
-// where every switch folds away at compile time).
+// height, the readout, a mask of parts switched OFF (0 for K2 and K4,
+// where every switch folds away at compile time) and the precision of the
+// recurrence product (K2's TF32 build; fp32 everywhere else).
 //
 // For every batch row it runs all T steps of
 //     s' = tanh(W s + [W_in | W_fb] [u_t; o]) + noise * (U - 0.5)
@@ -25,6 +26,15 @@
 // n_res8 = n_res rounded up to kKc, n_io8 = n_in + n_out rounded up to kKc,
 // so a chunk of the weight never straddles S and IO. The weight is
 // Wc = [Wt; 0; W_in_t; W_fb_t; 0] of shape (n_res8 + n_io8, n_p).
+//
+// The TF32 build (kTf32, K2 only) multiplies the state rows of Wc on the
+// tensor cores (mma m16n8k8, TF32 operands, fp32 accumulation): the
+// wrapper rounds Wt to TF32, and S holds the state rounded to TF32 from
+// the end of each step's readout, which reads it in fp32, to the next
+// step's product. The [u; o] rows stay fp32 multiply-adds into the same
+// accumulators. A warp streams the same columns as in the fp32 build; its
+// ring rows are padded by 8 floats where that keeps the B-fragment loads
+// free of bank conflicts (`ring_pad`).
 
 #pragma once
 
@@ -79,21 +89,65 @@ inline int grouped_slots(int G, int Dg, int rows) {
 
 // Threads of a block: 128 (4 threads along rows) where 256 would leave a
 // thread 64 accumulators or fewer, so that a small tile keeps a register
-// tile worth its shared-memory loads; else 256 (8 along rows).
-__host__ __device__ constexpr int threads_of(int NJ4, int kH) { return kH * NJ4 / 4 <= 64 ? 128 : 256; }
+// tile worth its shared-memory loads; else 256 (8 along rows). The TF32
+// build always takes 256: eight warps a block hide each other's fragment
+// loads and MMA latency, and a warp's share of the columns fits registers.
+__host__ __device__ constexpr int threads_of(int NJ4, int kH, bool tf32 = false) {
+  return !tf32 && kH * NJ4 / 4 <= 64 ? 128 : 256;
+}
 
 // Blocks an SM the registers allow: two of 128 threads, one of 256.
-__host__ __device__ constexpr int min_blocks(int NJ4, int kH) { return threads_of(NJ4, kH) == 128 ? 2 : 1; }
+__host__ __device__ constexpr int min_blocks(int NJ4, int kH, bool tf32 = false) {
+  return threads_of(NJ4, kH, tf32) == 128 ? 2 : 1;
+}
+
+// Reservoir widths (ceil(n_res / 64)) with a TF32 build: those of the
+// presets and the reservoir sweep (n_res 100, 200, 300, 450, 600). At one
+// 64-neuron group (the sweep's n_res 50) the fp32 build measured faster
+// (PERF.md). The wrapper asks esn_predict_has_tf32.
+__host__ __device__ constexpr bool tf32_width(int NJ4) {
+  return NJ4 == 2 || NJ4 == 4 || NJ4 == 5 || NJ4 == 8 || NJ4 == 10;
+}
+
+// Floats of padding after each ring row of a warp in the TF32 build: a
+// warp's row of kRowW = n_p / (threads / 32) floats is read by lanes
+// (k = tig, n = gid) at k * stride + n, free of bank conflicts only where
+// stride / 8 is odd.
+__host__ __device__ constexpr int ring_pad(int NJ4, int kH, bool tf32) {
+  return tf32 && (NJ4 * 64 / (threads_of(NJ4, kH, tf32) / 32) / 8) % 2 == 0 ? 8 : 0;
+}
 
 // Shared memory of one block in bytes; P = 0 for K2 and K5.
-inline size_t smem_bytes(int n_res, int n_in, int n_out, int height, int P) {
+inline size_t smem_bytes(int n_res, int n_in, int n_out, int height, int P,
+                         bool tf32 = false) {
   const int n_p = round_up(n_res, 64);
-  const int kWarps = threads_of(n_p / 64, height) / 32;
+  const int kWarps = threads_of(n_p / 64, height, tf32) / 32;
   size_t floats = (size_t)(round_up(n_res, kKc) + 2 * round_up(n_in + n_out, kKc)) * height
-                  + (size_t)kStages * kKc * n_p
+                  + (size_t)kStages * kKc * (n_p + kWarps * ring_pad(n_p / 64, height, tf32))
                   + (size_t)kWarps * kOutTile * height
                   + (size_t)P * ((n_res + n_in) * n_out + kSlotPad);
   return sizeof(float) * floats;
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero:
+// models/esn.py:round_tf32 is its plain version.
+__device__ __forceinline__ float tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// d += a b on the tensor cores: a 16 x 8 (rows x k) and b 8 x 8 (k x
+// neurons) TF32, d 16 x 8 fp32. Lane 4 gid + tig holds a (gid, tig),
+// (gid + 8, tig), (gid, tig + 4), (gid + 8, tig + 4); b (tig, gid),
+// (tig + 4, gid); d (gid, 2 tig), (gid, 2 tig + 1), (gid + 8, 2 tig),
+// (gid + 8, 2 tig + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -118,8 +172,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // groups of 128 with 4 consecutive ones where NJ4 is even, groups of 64 with
 // 2 otherwise. A warp is kTx x (32 / kTx) threads: all the tile's rows, and
 // a slice of the neurons that no other warp touches.
-template <int NJ4, int kH, bool kGrouped, int kOff = 0>
-__global__ void __launch_bounds__(threads_of(NJ4, kH), min_blocks(NJ4, kH))
+template <int NJ4, int kH, bool kGrouped, int kOff = 0, bool kTf32 = false>
+__global__ void __launch_bounds__(threads_of(NJ4, kH, kTf32), min_blocks(NJ4, kH, kTf32))
 predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
                const float* __restrict__ wc,    // (K_pad, n_p)
                const float* __restrict__ wout,  // (G, n_res + n_in, n_out)
@@ -130,7 +184,7 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
                int n_forget, int rows, int P, float noise,
                float teacher_scaling) {
   constexpr int n_p = NJ4 * 64;
-  constexpr int kThreads = threads_of(NJ4, kH), kWarps = kThreads / 32;
+  constexpr int kThreads = threads_of(NJ4, kH, kTf32), kWarps = kThreads / 32;
   constexpr int kTx = kThreads / kTy;  // threads along rows
   constexpr int kSlab = 4 * kTx;      // rows of a slab
   constexpr int RT = kH / kTx, RA = RT / 4, RB = RT % 4;
@@ -139,8 +193,14 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
   constexpr int NM = NT / NW;         // neuron groups
   constexpr int kSeg = 32 / kTx * NW; // a warp's consecutive columns of a group
   constexpr int kRowW = NM * kSeg;    // a warp's columns of one Wc row
-  constexpr int kChunkW = kKc * kRowW;  // floats of a warp's part of a chunk
-  static_assert(kH % kTx == 0 && kH % 4 == 0 && n_p % (kTy * NW) == 0 && kSeg % 4 == 0, "tile");
+  constexpr int kRowS = kRowW + ring_pad(NJ4, kH, kTf32);  // ring row stride
+  constexpr int kChunkS = kKc * kRowS;  // floats of a warp's ring slot
+  static_assert((kTf32 || (kH % kTx == 0 && kH % 4 == 0)) && n_p % (kTy * NW) == 0 && kSeg % 4 == 0,
+                "tile");
+  // TF32 build: MT m16 tiles over the rows, NTW n8 tiles over the warp's
+  // columns (8 consecutive neurons each: kSeg is a multiple of 8)
+  constexpr int MT = (kH + 15) / 16, NTW = kRowW / 8;
+  static_assert(!kTf32 || (kOff == 0 && !kGrouped && kKc == 8 && kSeg % 8 == 0), "tf32");
 
   const int n_res8 = round_up(n_res, kKc);
   const int n_io8 = round_up(n_in + n_out, kKc);
@@ -150,14 +210,15 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);     // (n_res8, kH)
   float* IO = S + (size_t)n_res8 * kH;            // 2 x (n_io8, kH)
-  float* ring = IO + 2 * (size_t)n_io8 * kH;      // kWarps x kStages x (kKc, kRowW)
-  float* RED = ring + kWarps * kStages * kChunkW; // (kWarps, kOutTile, kH)
+  float* ring = IO + 2 * (size_t)n_io8 * kH;      // kWarps x kStages x (kKc, kRowS)
+  float* RED = ring + kWarps * kStages * kChunkS; // (kWarps, kOutTile, kH)
   float* WO = RED + kWarps * kOutTile * kH;       // K4 only: (P, slot)
 
   const int tid = threadIdx.x;
   const int tx = tid % kTx;
   const int ty = tid / kTx;
   const int lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;  // the TF32 build's MMA lanes
   const int row0 = blockIdx.x * rows;
   const int n_valid = min(rows, B - row0);        // real rows of this block
   const int slot = F * n_out + kSlotPad;
@@ -183,20 +244,20 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
   // Wc only, so each warp streams those columns through a ring of its own
   // and the warps of a block meet at the step's barriers, not at every
   // chunk. Chunk number c of the run goes to ring slot c % kStages, laid
-  // out (kKc, NM, kSeg).
-  float* wring = ring + warp * (kStages * kChunkW);
+  // out (kKc, NM, kSeg) with rows kRowS apart.
+  float* wring = ring + warp * (kStages * kChunkS);
   const float* wsrc = wc + (warp * (32 / kTx)) * NW;
   long long c_fetch = 0;
   int kc_fetch = 0, st_fetch = 0;
   auto fetch_chunk = [&]() {
     if (c_fetch < total) {
       const float* src = wsrc + (size_t)(k_lo + kc_fetch * kKc) * n_p;
-      float* dst = wring + st_fetch * kChunkW;
+      float* dst = wring + st_fetch * kChunkS;
 #pragma unroll
-      for (int u = lane; u < kChunkW / 4; u += 32) {
+      for (int u = lane; u < kKc * kRowW / 4; u += 32) {
         const int kk = u / (kRowW / 4), rem = u % (kRowW / 4);
         const int m = rem / (kSeg / 4), q4 = rem % (kSeg / 4);
-        cp_async16(dst + 4 * u, src + (size_t)kk * n_p + m * (kTy * NW) + 4 * q4);
+        cp_async16(dst + kk * kRowS + 4 * rem, src + (size_t)kk * n_p + m * (kTy * NW) + 4 * q4);
       }
     }
     cp_async_commit();
@@ -227,7 +288,8 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
   if (s0 != nullptr)
     for (int i = tid; i < n_valid * n_res; i += kThreads) {
       const int r = i / n_res, j = i % n_res;
-      S[j * kH + r] = s0[(size_t)(row0 + r) * n_res + j];
+      const float v = s0[(size_t)(row0 + r) * n_res + j];
+      S[j * kH + r] = kTf32 ? tf32_rna(v) : v;
     }
   if (o0 != nullptr)
     for (int i = tid; i < n_valid * n_out; i += kThreads) {
@@ -241,22 +303,9 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
     float* io_t = IO + (size_t)(t & 1) * n_io8 * kH;
     float* io_n = IO + (size_t)((t + 1) & 1) * n_io8 * kH;
 
-    // ---- pre = Wc^T [s; u_t; o] over the contraction rows ----
-    float acc[NT][RT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        if (kOff & kNoRecDot) {  // pre starts from s itself
-          const int j = neuron_of(n);
-          acc[n][i] = j < n_res ? S[j * kH + row_of(i)] : 0.0f;
-        } else {
-          acc[n][i] = 0.0f;
-        }
-      }
-
-#pragma unroll 1
-    for (int kc = 0; kc < nck; ++kc) {
+    // the head of chunk kc of step t: wait for it in this warp's ring slot
+    // and start the fetch of the chunk kStages - 1 ahead
+    auto begin_chunk = [&](int kc) {
       cp_async_wait<kStages - 2>();   // this lane's part of the chunk is in
       __syncwarp();                   // the warp's is, and the slot before is free
       if (kc == 0 && t + 1 < T) {
@@ -268,74 +317,182 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
         }
       }
       fetch_chunk();
+    };
 
-      const int k0 = k_lo + kc * kKc;
-      const float* xb = k0 < n_res8 ? S + (size_t)k0 * kH : io_t + (size_t)(k0 - n_res8) * kH;
-      const float* wb = wring + st * kChunkW + (ty % (32 / kTx)) * NW;
+    if constexpr (kTf32) {
+      // ---- pre on the tensor cores: tile (mt, nt) of a lane holds rows
+      // mt * 16 + gid (+ 8) and the warp's ring columns nt * 8 + 2 tig (+ 1)
+      float acc[MT][NTW][4];
 #pragma unroll
-      for (int kk = 0; kk < kKc; ++kk) {
-        const float* xk = xb + kk * kH;
-        const float* wk = wb + kk * kRowW;
-        float x[RT], w[NT];
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int a = 0; a < RA; ++a) {
-          const float4 v = *reinterpret_cast<const float4*>(xk + a * kSlab + tx * 4);
-          x[4 * a] = v.x; x[4 * a + 1] = v.y; x[4 * a + 2] = v.z; x[4 * a + 3] = v.w;
-        }
-        if (RB == 2) {
-          const float2 v = *reinterpret_cast<const float2*>(xk + RA * kSlab + tx * 2);
-          x[4 * RA] = v.x; x[4 * RA + 1] = v.y;
+        for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.0f;
+
+#pragma unroll 1
+      for (int kc = 0; kc < nck; ++kc) {
+        begin_chunk(kc);
+        const int k0 = kc * kKc;
+        const float* wb = wring + st * kChunkS;
+        // a tile's rows past kH read the next rows of shared memory: their
+        // sums are never written back
+        if (k0 < n_res8) {
+          // state rows: S and Wt hold TF32 values
+          const float* xb = S + (size_t)k0 * kH + gid;
+          unsigned a[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            a[mt][0] = __float_as_uint(xb[tig * kH + mt * 16]);
+            a[mt][1] = __float_as_uint(xb[tig * kH + mt * 16 + 8]);
+            a[mt][2] = __float_as_uint(xb[(tig + 4) * kH + mt * 16]);
+            a[mt][3] = __float_as_uint(xb[(tig + 4) * kH + mt * 16 + 8]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt) {
+            const unsigned b0 = __float_as_uint(wb[tig * kRowS + nt * 8 + gid]);
+            const unsigned b1 = __float_as_uint(wb[(tig + 4) * kRowS + nt * 8 + gid]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], a[mt], b0, b1);
+          }
         } else {
+          // [u_t; o] rows: fp32 multiply-adds into the same sums
+          const float* xb = io_t + (size_t)(k0 - n_res8) * kH + gid;
 #pragma unroll
-          for (int b = 0; b < RB; ++b) x[4 * RA + b] = xk[RA * kSlab + tx * RB + b];
-        }
+          for (int kk = 0; kk < kKc; ++kk) {
+            float x[MT][2];
 #pragma unroll
-        for (int m = 0; m < NM; ++m) {
-          if (NW == 4) {
-            const float4 v = *reinterpret_cast<const float4*>(wk + m * kSeg);
-            w[4 * m] = v.x; w[4 * m + 1] = v.y; w[4 * m + 2] = v.z; w[4 * m + 3] = v.w;
-          } else {
-            const float2 v = *reinterpret_cast<const float2*>(wk + m * kSeg);
-            w[2 * m] = v.x; w[2 * m + 1] = v.y;
+            for (int mt = 0; mt < MT; ++mt) {
+              x[mt][0] = xb[kk * kH + mt * 16];
+              x[mt][1] = xb[kk * kH + mt * 16 + 8];
+            }
+#pragma unroll
+            for (int nt = 0; nt < NTW; ++nt) {
+              const float2 w = *reinterpret_cast<const float2*>(wb + kk * kRowS + nt * 8 + 2 * tig);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                acc[mt][nt][0] = fmaf(w.x, x[mt][0], acc[mt][nt][0]);
+                acc[mt][nt][1] = fmaf(w.y, x[mt][0], acc[mt][nt][1]);
+                acc[mt][nt][2] = fmaf(w.x, x[mt][1], acc[mt][nt][2]);
+                acc[mt][nt][3] = fmaf(w.y, x[mt][1], acc[mt][nt][3]);
+              }
+            }
           }
         }
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int i = 0; i < RT; ++i) acc[n][i] = fmaf(w[n], x[i], acc[n][i]);
+        if (++st == kStages) st = 0;
       }
-      if (++st == kStages) st = 0;
-    }
-    // a short step leaves u_{t+1}'s group behind the ring's depth
-    if (nck < kStages) cp_async_wait<0>();
-    __syncthreads();  // every warp is done reading S; u_{t+1} has landed
+      if (nck < kStages) cp_async_wait<0>();
+      __syncthreads();  // every warp is done reading S; u_{t+1} has landed
 
-    // ---- s' = tanh(pre) + noise, written over S ----
+      // ---- s' = tanh(pre) + noise, written over S (fp32 until the readout) ----
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int j = neuron_of(n);
-      if (j < n_res) {
-        float v[RT];
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int i = 0; i < RT; ++i)
-          v[i] = (kOff & kNoTanh) ? 0.5f * acc[n][i] : tanhf(acc[n][i]);
-        if (noisy) {
+        for (int nt = 0; nt < NTW; ++nt) {
+          // rows mt * 16 + 8 (c >> 1) + gid; a half wholly past kH is skipped
+          float v[4];
 #pragma unroll
-          for (int i = 0; i < RT; i += 4) {
+          for (int c = 0; c < 4; ++c)
+            v[c] = mt * 16 + 8 * (c >> 1) < kH ? tanhf(acc[mt][nt][c]) : 0.0f;
+          if (noisy) {
             const float4 z = curand_uniform4(&rng);
-            const float zz[4] = {z.x, z.y, z.z, z.w};
+            v[0] += noise * (z.x - 0.5f); v[1] += noise * (z.y - 0.5f);
+            v[2] += noise * (z.z - 0.5f); v[3] += noise * (z.w - 0.5f);
+          }
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-              if (i + q < RT) v[i + q] += noise * (zz[q] - 0.5f);
+          for (int c = 0; c < 4; ++c) {
+            const int r = mt * 16 + gid + 8 * (c >> 1);
+            const int col = nt * 8 + 2 * tig + (c & 1);
+            const int j = (col / kSeg) * (kTy * NW) + warp * kSeg + col % kSeg;
+            if (mt * 16 + 8 * (c >> 1) < kH && r < kH && j < n_res) S[(size_t)j * kH + r] = v[c];
           }
         }
-        float* sj = S + (size_t)j * kH;
+    } else {
+      // ---- pre = Wc^T [s; u_t; o] over the contraction rows ----
+      float acc[NT][RT];
 #pragma unroll
-        for (int a = 0; a < RA; ++a)
-          *reinterpret_cast<float4*>(sj + a * kSlab + tx * 4) =
-              make_float4(v[4 * a], v[4 * a + 1], v[4 * a + 2], v[4 * a + 3]);
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int b = 0; b < RB; ++b) sj[RA * kSlab + tx * RB + b] = v[4 * RA + b];
+        for (int i = 0; i < RT; ++i) {
+          if (kOff & kNoRecDot) {  // pre starts from s itself
+            const int j = neuron_of(n);
+            acc[n][i] = j < n_res ? S[j * kH + row_of(i)] : 0.0f;
+          } else {
+            acc[n][i] = 0.0f;
+          }
+        }
+
+#pragma unroll 1
+      for (int kc = 0; kc < nck; ++kc) {
+        begin_chunk(kc);
+        const int k0 = k_lo + kc * kKc;
+        const float* xb = k0 < n_res8 ? S + (size_t)k0 * kH : io_t + (size_t)(k0 - n_res8) * kH;
+        const float* wb = wring + st * kChunkS + (ty % (32 / kTx)) * NW;
+#pragma unroll
+        for (int kk = 0; kk < kKc; ++kk) {
+          const float* xk = xb + kk * kH;
+          const float* wk = wb + kk * kRowS;
+          float x[RT], w[NT];
+#pragma unroll
+          for (int a = 0; a < RA; ++a) {
+            const float4 v = *reinterpret_cast<const float4*>(xk + a * kSlab + tx * 4);
+            x[4 * a] = v.x; x[4 * a + 1] = v.y; x[4 * a + 2] = v.z; x[4 * a + 3] = v.w;
+          }
+          if (RB == 2) {
+            const float2 v = *reinterpret_cast<const float2*>(xk + RA * kSlab + tx * 2);
+            x[4 * RA] = v.x; x[4 * RA + 1] = v.y;
+          } else {
+#pragma unroll
+            for (int b = 0; b < RB; ++b) x[4 * RA + b] = xk[RA * kSlab + tx * RB + b];
+          }
+#pragma unroll
+          for (int m = 0; m < NM; ++m) {
+            if (NW == 4) {
+              const float4 v = *reinterpret_cast<const float4*>(wk + m * kSeg);
+              w[4 * m] = v.x; w[4 * m + 1] = v.y; w[4 * m + 2] = v.z; w[4 * m + 3] = v.w;
+            } else {
+              const float2 v = *reinterpret_cast<const float2*>(wk + m * kSeg);
+              w[2 * m] = v.x; w[2 * m + 1] = v.y;
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int i = 0; i < RT; ++i) acc[n][i] = fmaf(w[n], x[i], acc[n][i]);
+        }
+        if (++st == kStages) st = 0;
+      }
+      // a short step leaves u_{t+1}'s group behind the ring's depth
+      if (nck < kStages) cp_async_wait<0>();
+      __syncthreads();  // every warp is done reading S; u_{t+1} has landed
+
+      // ---- s' = tanh(pre) + noise, written over S ----
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int j = neuron_of(n);
+        if (j < n_res) {
+          float v[RT];
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+            v[i] = (kOff & kNoTanh) ? 0.5f * acc[n][i] : tanhf(acc[n][i]);
+          if (noisy) {
+#pragma unroll
+            for (int i = 0; i < RT; i += 4) {
+              const float4 z = curand_uniform4(&rng);
+              const float zz[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                if (i + q < RT) v[i + q] += noise * (zz[q] - 0.5f);
+            }
+          }
+          float* sj = S + (size_t)j * kH;
+#pragma unroll
+          for (int a = 0; a < RA; ++a)
+            *reinterpret_cast<float4*>(sj + a * kSlab + tx * 4) =
+                make_float4(v[4 * a], v[4 * a + 1], v[4 * a + 2], v[4 * a + 3]);
+#pragma unroll
+          for (int b = 0; b < RB; ++b) sj[RA * kSlab + tx * RB + b] = v[4 * RA + b];
+        }
       }
     }
     __syncthreads();
@@ -376,8 +533,12 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
               }
             };
 #pragma unroll 8
-            for (int f = warp; f < n_res; f += kWarps)
-              add(S[f * kH + r], wrow + (size_t)f * n_out);
+            for (int f = warp; f < n_res; f += kWarps) {
+              const float sv = S[f * kH + r];
+              add(sv, wrow + (size_t)f * n_out);
+              // the TF32 build's next product reads s' rounded to TF32
+              if (kTf32 && kb + kOutTile >= n_out) S[f * kH + r] = tf32_rna(sv);
+            }
 #pragma unroll 2
             for (int f = warp; f < n_in; f += kWarps)
               add(io_t[f * kH + r], wrow + (size_t)(n_res + f) * n_out);
@@ -410,22 +571,23 @@ predict_kernel(const float* __restrict__ u_fm,  // (T, n_in, B) scaled
   cp_async_wait<0>();
 }
 
-template <int NJ4, int kH, bool kGrouped, int kOff = 0>
+template <int NJ4, int kH, bool kGrouped, int kOff = 0, bool kTf32 = false>
 int launch(const float* u_fm, const float* wc, const float* wout, float* out,
            const float* s0, const float* o0, int B, int T, int n_res, int n_in, int n_out, int Dg, int n_forget,
            int rows, int P, float noise, float teacher_scaling,
            const unsigned long long* seed, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n_res, n_in, n_out, kH, kGrouped ? P : 0);
+  const size_t smem = smem_bytes(n_res, n_in, n_out, kH, kGrouped ? P : 0, kTf32);
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(predict_kernel<NJ4, kH, kGrouped, kOff>,
+  cudaError_t e = cudaFuncSetAttribute(predict_kernel<NJ4, kH, kGrouped, kOff, kTf32>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   // shared memory for the blocks the tiling puts on an SM and no more: what
   // is left is L1, which holds K2's readout weights between steps
   const size_t fit = kSmemSm / (smem + 1024);
-  const size_t need = (fit < (size_t)min_blocks(NJ4, kH) ? fit : min_blocks(NJ4, kH)) * (smem + 1024);
-  e = cudaFuncSetAttribute(predict_kernel<NJ4, kH, kGrouped, kOff>,
+  constexpr int kMin = min_blocks(NJ4, kH, kTf32);
+  const size_t need = (fit < (size_t)kMin ? fit : kMin) * (smem + 1024);
+  e = cudaFuncSetAttribute(predict_kernel<NJ4, kH, kGrouped, kOff, kTf32>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            need >= kSmemSm ? 100 : (int)(need * 100 / kSmemSm) + 1);
   if (e != cudaSuccess) return (int)e;
@@ -435,7 +597,7 @@ int launch(const float* u_fm, const float* wc, const float* wout, float* out,
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (B + rows - 1) / rows;
-  predict_kernel<NJ4, kH, kGrouped, kOff><<<blocks, threads_of(NJ4, kH), smem, stream>>>(
+  predict_kernel<NJ4, kH, kGrouped, kOff, kTf32><<<blocks, threads_of(NJ4, kH, kTf32), smem, stream>>>(
       u_fm, wc, wout, out, s0, o0, B, T, n_res, n_in, n_out, Dg, n_forget,
       rows, P, noise, teacher_scaling);
   return (int)cudaGetLastError();
@@ -443,9 +605,10 @@ int launch(const float* u_fm, const float* wc, const float* wout, float* out,
 
 // The builds of K2 and K4: tile heights of 20 and 72 rows for
 // ceil(n_res / 64) = 1 .. 5, of 20 rows for 6 .. 10 (n_res <= 640; a 72-row
-// state of a wider reservoir leaves the ring no room). Another height, or
-// more rows a block than the height, is refused.
-template <bool kGrouped>
+// state of a wider reservoir leaves the ring no room); K2's TF32 builds at
+// the same heights for the widths of `tf32_width`. Another height or width,
+// or more rows a block than the height, is refused.
+template <bool kGrouped, bool kTf32 = false>
 int launch_any(const float* u_fm, const float* wc, const float* wout,
                float* out, const float* s0, const float* o0, int B, int T, int n_res, int n_in, int n_out,
                int Dg, int n_forget, int rows, int height, int P, float noise,
@@ -456,8 +619,10 @@ int launch_any(const float* u_fm, const float* wc, const float* wout,
 #define ESN_ARGS u_fm, wc, wout, out, s0, o0, B, T, n_res, n_in, n_out, Dg, n_forget, rows, P, noise, teacher_scaling, seed, s
 #define ESN_CASE(N)                                                  \
   case N:                                                            \
-    if (height == 20) return launch<N, 20, kGrouped>(ESN_ARGS);     \
-    if (height == 72 && N <= 5) return launch<(N <= 5 ? N : 1), 72, kGrouped>(ESN_ARGS); \
+    if (kTf32 && !tf32_width(N)) return (int)cudaErrorInvalidValue;  \
+    if (height == 20) return launch<N, 20, kGrouped, 0, kTf32 && tf32_width(N)>(ESN_ARGS); \
+    if (height == 72 && N <= 5)                                      \
+      return launch<(N <= 5 ? N : 1), 72, kGrouped, 0, kTf32 && tf32_width(N)>(ESN_ARGS); \
     return (int)cudaErrorInvalidValue;
   switch ((n_res + 63) / 64) {
     ESN_CASE(1)

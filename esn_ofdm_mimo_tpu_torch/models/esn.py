@@ -11,7 +11,8 @@ Weights are stored transposed relative to pyESN (row-major `x @ W`):
     state' = tanh(s @ Wt + u @ W_in_t + d @ W_fb_t) + noise*(U(0,1)-0.5)
 
 `esn_predict` is the plain version of the CUDA predict kernels
-(models/esn_cuda.py), `esn_predict_ablate` that of their ablation builds,
+(models/esn_cuda.py; with tf32=True, of K2's TF32 build: `round_tf32`),
+`esn_predict_ablate` that of their ablation builds,
 `esn_states` that of the CUDA state-harvest kernel
 (models/esn_states_cuda.py). `esn_fit` harvests its states through that
 kernel's wrapper, which runs `esn_states` on CPU tensors; with
@@ -201,6 +202,16 @@ def broadcast_carry(init_carry, B: int, n_res: int, n_out: int,
                  for x, n in ((s0, n_res), (o0, n_out)))
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32 (10 mantissa bits, the low 13 bits
+    zero): to nearest, ties away from zero, as the card's cvt.rna.tf32.f32;
+    infinities stay, a finite value past the largest TF32 rounds to an
+    infinity, NaN stays NaN."""
+    b = x.contiguous().view(torch.int32)
+    r = ((b + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x, r)
+
+
 ABLATE_PARTS = ("readout", "feedback", "noise", "tanh", "recurrence_dot")
 
 
@@ -209,15 +220,15 @@ def esn_predict_ablate(res: EsnReservoir, scale: EsnScale,
                        n_forget: int, generator=None, *, readout: bool = True,
                        feedback: bool = True, noise: bool = True,
                        tanh: bool = True, recurrence_dot: bool = True,
-                       init_carry=None) -> torch.Tensor:
+                       init_carry=None, tf32: bool = False) -> torch.Tensor:
     """The predict recurrence, each part of its step behind a switch. With
     every part on (the default) it is `esn_predict`; with parts off it is
     the plain version of the CUDA ablation builds, for attributing the
     step's time (the JAX package's tools/bench_micro.py:_mk_kernel). What a
     part computes when off: readout -> o = s'[:n_out]; feedback -> the
     W_fb o term dropped; noise -> none; tanh -> s' = 0.5 * pre;
-    recurrence_dot -> pre = s + W_in u (+ W_fb o). Shapes and init_carry
-    as `esn_predict`."""
+    recurrence_dot -> pre = s + W_in u (+ W_fb o). Shapes, init_carry and
+    tf32 as `esn_predict`."""
     B, T, n_in = inputs.shape
     n_res = res.Wt.shape[0]
     G, _, n_out = Wt_out.shape
@@ -229,8 +240,10 @@ def esn_predict_ablate(res: EsnReservoir, scale: EsnScale,
     o_in = (u.reshape(G, Dg * T, n_in) @ Wt_u).reshape(B, T, n_out)
     s, o = broadcast_carry(init_carry, B, n_res, n_out, u)
     outs = torch.empty(B, T, n_out, dtype=u.dtype, device=u.device)
+    rnd = round_tf32 if tf32 else (lambda v: v)
+    Wt = rnd(res.Wt)
     for t in range(T):
-        pre = (s @ res.Wt if recurrence_dot else s) + drive[:, t]
+        pre = (rnd(s) @ Wt if recurrence_dot else s) + drive[:, t]
         if feedback:
             pre = pre + o @ res.W_fb_t
         s = torch.tanh(pre) if tanh else 0.5 * pre
@@ -248,7 +261,7 @@ def esn_predict_ablate(res: EsnReservoir, scale: EsnScale,
 
 def esn_predict(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
                 inputs: torch.Tensor, n_forget: int, generator=None,
-                init_carry=None) -> torch.Tensor:
+                init_carry=None, tf32: bool = False) -> torch.Tensor:
     """Outputs with self-feedback (pyESN.predict). The plain version of the
     CUDA predict kernel: the step of `esn_predict_ablate` with every part
     on.
@@ -259,9 +272,12 @@ def esn_predict(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
     pyESN.predict:238-241); the (laststate, lastoutput_scaled) pair of
     `esn_fit(..., return_carry=True)`, broadcast over the rows, resumes
     where the fit left off (continuation=True, :234-237).
+    tf32=True is the plain version of K2's TF32 build: the recurrence
+    product s @ Wt of TF32-rounded operands (`round_tf32`), summed in fp32;
+    the drive, the feedback and the readout stay fp32.
     Returns (B, T - n_forget, n_out) unscaled outputs."""
     return esn_predict_ablate(res, scale, Wt_out, inputs, n_forget, generator,
-                              init_carry=init_carry)
+                              init_carry=init_carry, tf32=tf32)
 
 
 def key_seed(key: torch.Tensor) -> int:

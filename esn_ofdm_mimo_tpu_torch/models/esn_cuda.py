@@ -14,7 +14,12 @@ a chunk boundary, the scaled inputs time-major (T, n_in, B), the grouped
 readout (G, F, n_out) as is — and launches the whole T-step recurrence once
 on PyTorch's current stream. For
 CPU tensors it runs the plain version, models/esn.py:esn_predict, for either
-readout. The kernels work in fp32 throughout, like the plain version.
+readout. The kernels work in fp32 throughout, like the plain version, but
+for K2's TF32 build, which `predict_route` takes for the precision the
+configurations state (EsnConfig.recurrence_precision None, the JAX
+package's 1-pass bf16 recurrence dot): the product s @ Wt on the tensor
+cores in TF32 with fp32 sums, everything else in fp32 (its plain version:
+esn_predict(..., tf32=True)).
 
 State noise: the kernel draws it from Philox seeded with `seed`; the plain
 version from a torch.Generator seeded with the same value. The streams
@@ -36,11 +41,12 @@ import torch
 
 from ..utils import build
 from .esn import (ABLATE_PARTS, EsnReservoir, EsnScale, broadcast_carry,
-                  esn_predict, esn_predict_ablate, scale_inputs)
+                  esn_predict, esn_predict_ablate, round_tf32, scale_inputs)
 
-# Launches of K2, of K4 and of K5 since the counts were last reset (by the
-# caller).
+# Launches of K2 (of them launches_tf32 of its TF32 build), of K4 and of K5
+# since the counts were last reset (by the caller).
 launches = 0
+launches_tf32 = 0
 launches_grouped = 0
 launches_ablate = 0
 
@@ -49,7 +55,10 @@ _N_OUT_MAX = 32
 
 
 _SOURCES = {"per_row": "esn_predict", "grouped": "esn_predict_grouped",
-            "ablate": "esn_predict_ablate"}
+            "ablate": "esn_predict_ablate", "tf32": "esn_predict"}
+# EsnConfig.recurrence_precision: None and "default" (the JAX package's
+# 1-pass bf16 dot) allow the TF32 product; "high" and "highest" keep fp32
+_PRECISIONS = (None, "default", "high", "highest")
 # K5: the mask bit of each part (csrc/esn_predict_core.cuh, enum Off), the
 # sets of switched-off parts that are built, and the one reservoir width
 _OFF_BIT = {part: 1 << i for i, part in enumerate(ABLATE_PARTS)}
@@ -77,10 +86,42 @@ def tile_heights(n_res: int, readout: str = "per_row") -> tuple:
     return (20, 72) if n_res <= 320 else (20,)
 
 
-def block_threads(n_res: int, height: int) -> int:
+def predict_route(precision, device: torch.device) -> str:
+    """The product a K2 call asks for: "tf32" (K2's TF32 build) for the
+    precision None or "default" on a CUDA device, else "fp32" ("high",
+    "highest", and the CPU's plain version, where XLA's CPU backend keeps
+    fp32 too). At a reservoir width with no TF32 build (`tf32_built`) the
+    call launches the fp32 build."""
+    if precision not in _PRECISIONS:
+        raise ValueError(f"unknown recurrence precision {precision!r}; "
+                         f"expected one of {_PRECISIONS}")
+    return ("tf32" if precision in (None, "default")
+            and torch.device(device).type == "cuda" else "fp32")
+
+
+@functools.lru_cache(maxsize=None)
+def tf32_built(n_res: int) -> bool:
+    """Whether K2's library has a TF32 build at this reservoir width
+    (csrc/esn_predict_core.cuh:tf32_width, the one list of them)."""
+    has = build.load(_SOURCES["tf32"]).esn_predict_has_tf32
+    has.argtypes = [ctypes.c_int]
+    return bool(has(n_res))
+
+
+def ring_pad(n_res: int, height: int, tf32: bool) -> int:
+    """Floats after each weight-ring row of a warp in the TF32 build
+    (esn_predict_core.cuh:ring_pad): 8 where the row of n_p / warps floats
+    is an even number of 8-float groups."""
+    n_p = -(-n_res // 64) * 64
+    return 8 if tf32 and n_p // (block_threads(n_res, height, tf32) // 32) \
+        // 8 % 2 == 0 else 0
+
+
+def block_threads(n_res: int, height: int, tf32: bool = False) -> int:
     """Threads of a block of this tile (esn_predict_core.cuh:threads_of): 128
-    where 256 would leave a thread at most 64 accumulators, else 256."""
-    return 128 if height * -(-n_res // 64) // 4 <= 64 else 256
+    where 256 would leave a thread at most 64 accumulators, else 256; 256
+    in the TF32 build."""
+    return 128 if not tf32 and height * -(-n_res // 64) // 4 <= 64 else 256
 
 
 class Tiling(NamedTuple):
@@ -101,24 +142,28 @@ def grouped_slots(G: int, Dg: int, rows_per_block: int = 64) -> int:
 
 
 def predict_smem_bytes(n_res: int, n_in: int, n_out: int, height: int,
-                       slots: int = 0) -> int:
+                       slots: int = 0, tf32: bool = False) -> int:
     """Dynamic shared memory of one block (esn_predict_core.cuh:smem_bytes):
-    the state and both [u; o] buffers at `height` rows, the weight ring, the
-    readout's partial sums and, for K4, `slots` staged readouts."""
+    the state and both [u; o] buffers at `height` rows, the weight ring
+    (padded in the TF32 build), the readout's partial sums and, for K4,
+    `slots` staged readouts."""
     n_p = -(-n_res // 64) * 64
     k_rows = -(-n_res // _KC) * _KC + 2 * (-(-(n_in + n_out) // _KC) * _KC)
-    warps = block_threads(n_res, height) // 32
-    floats = (k_rows * height + _STAGES * _KC * n_p + warps * 8 * height
+    warps = block_threads(n_res, height, tf32) // 32
+    ring = _STAGES * _KC * (n_p + warps * ring_pad(n_res, height, tf32))
+    floats = (k_rows * height + ring + warps * 8 * height
               + slots * ((n_res + n_in) * n_out + _SLOT_PAD))
     return 4 * floats
 
 
 def predict_tiling(B: int, n_res: int, n_in: int, n_out: int, n_sm: int,
                    Dg: int | None = None,
-                   heights: tuple | None = None) -> Tiling:
+                   heights: tuple | None = None,
+                   tf32: bool = False) -> Tiling:
     """Rows a block owns, from the batch, the operand sizes and the card's SM
     count. With `Dg` the plan is K4's: each block also stages its
-    rows_per_block // Dg + 2 readout slots (capped at B // Dg).
+    rows_per_block // Dg + 2 readout slots (capped at B // Dg); with `tf32`
+    K2's TF32 build's (its padded weight ring).
 
     Every SM gets the same number of blocks (1 or 2 resident, by shared
     memory and by the registers: two only of the 128-thread tiles) and every block the same rows, B / (n_sm x blocks an SM)
@@ -132,12 +177,13 @@ def predict_tiling(B: int, n_res: int, n_in: int, n_out: int, n_sm: int,
     best = None
     for height in heights:
         for bps in (1, 2):
-            if bps == 2 and block_threads(n_res, height) != 128:
+            if bps == 2 and block_threads(n_res, height, tf32) != 128:
                 continue
             waves = -(-B // (n_sm * bps * height))
             rows = max(1, -(-B // (n_sm * bps * waves)))
             slots = 0 if Dg is None else grouped_slots(B // Dg, Dg, rows)
-            smem = predict_smem_bytes(n_res, n_in, n_out, height, slots)
+            smem = predict_smem_bytes(n_res, n_in, n_out, height, slots,
+                                      tf32)
             if (smem > SMEM_BLOCK_MAX
                     or bps * (smem + _SMEM_BLOCK_RESERVED) > _SMEM_SM):
                 continue
@@ -203,13 +249,15 @@ def grouped_plan(B: int, G: int, n_res: int, n_in: int, n_out: int,
 
 @functools.lru_cache(maxsize=None)
 def _lib(readout: str):
-    """(k_pad, smem_bytes, launch) of K2 (readout "per_row"), K4 ("grouped")
-    or K5 ("ablate", whose launch takes no carry pointers and takes the mask
-    of switched-off parts after the tile height)."""
+    """(k_pad, smem_bytes, launch) of K2 (readout "per_row"), its TF32
+    build ("tf32", in K2's library), K4 ("grouped") or K5 ("ablate", whose
+    launch takes no carry pointers and takes the mask of switched-off parts
+    after the tile height)."""
     name = _SOURCES[readout]
     lib = build.load(name)
-    k_pad, smem, launch = (getattr(lib, f"{name}_{fn}")
-                           for fn in ("k_pad", "smem_bytes", "launch"))
+    tf32 = "_tf32" if readout == "tf32" else ""
+    k_pad, smem, launch = (getattr(lib, f"{name}_{fn}") for fn in (
+        "k_pad", f"smem_bytes{tf32}", f"launch{tf32}"))
     k_pad.argtypes = [ctypes.c_int] * 3
     smem.argtypes = [ctypes.c_int] * 5
     launch.argtypes = ([ctypes.c_void_p] * (4 if readout == "ablate" else 6)
@@ -235,17 +283,19 @@ def stacked_weights(res: EsnReservoir, n_in: int, n_out: int, K_pad: int,
     return Wc
 
 
-def predict_weights(res: EsnReservoir, n_in: int, n_out: int) -> torch.Tensor:
+def predict_weights(res: EsnReservoir, n_in: int, n_out: int,
+                    tf32: bool = False) -> torch.Tensor:
     """The predict kernels' Wc (K_pad, n_p): rows [Wt; 0; W_in_t; W_fb_t; 0]
     with the input rows starting at n_res rounded up to the chunk of 8, so
     that no chunk straddles the state and the [u; o] rows; columns = neurons,
-    zero padded to a multiple of 64."""
+    zero padded to a multiple of 64. With `tf32` (K2's TF32 build) Wt is
+    rounded to TF32; the input rows stay fp32."""
     n_res = res.Wt.shape[0]
     n_res8 = -(-n_res // _KC) * _KC
     K_pad = n_res8 + -(-(n_in + n_out) // _KC) * _KC
     Wc = torch.zeros(K_pad, -(-n_res // 64) * 64, dtype=torch.float32,
                      device=res.Wt.device)
-    Wc[:n_res, :n_res] = res.Wt
+    Wc[:n_res, :n_res] = round_tf32(res.Wt) if tf32 else res.Wt
     Wc[n_res8:n_res8 + n_in, :n_res] = res.W_in_t
     Wc[n_res8 + n_in:n_res8 + n_in + n_out, :n_res] = res.W_fb_t
     return Wc
@@ -291,12 +341,12 @@ def _launch(readout: str, plan: Tiling, res: EsnReservoir, scale: EsnScale,
             init_carry=None) -> torch.Tensor:
     """Lay the operands out and launch one predict kernel on PyTorch's
     current stream; raises where the launcher refuses or the launch fails.
-    K2 and K4 take the carry's two device pointers (null for a zero carry),
-    K5 none."""
+    K2 (either build) and K4 take the carry's two device pointers (null for
+    a zero carry), K5 none."""
     B, T, n_in = inputs.shape
     n_res, (G, _, n_out) = res.Wt.shape[0], Wt_out.shape
     k_pad, smem, launch = _lib(readout)
-    Wc = predict_weights(res, n_in, n_out)
+    Wc = predict_weights(res, n_in, n_out, tf32=readout == "tf32")
     if (Wc.shape[0] != k_pad(n_res, n_in, n_out) or plan.smem_bytes
             != smem(n_res, n_in, n_out, plan.height, slots)):
         raise RuntimeError("the wrapper's layout of the predict kernel's "
@@ -329,7 +379,8 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
                      n_forget: int, seed=0,
                      readout: str = "per_row",
                      tiling: Tiling | None = None,
-                     init_carry=None) -> torch.Tensor:
+                     init_carry=None,
+                     precision="highest") -> torch.Tensor:
     """Drop-in for models/esn.esn_predict: inputs (B, T, n_in) raw,
     Wt_out (G, n_res + n_in, n_out) grouped (B % G == 0) -> (B, T -
     n_forget, n_out) unscaled outputs. readout="grouped" launches K4 and
@@ -338,19 +389,25 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
     height; the launcher refuses a height it has no build for).
     init_carry (s0, o0), rows (n_res,) / (n_out,) or (1, ·) broadcast or
     (B, ·), starts each row there (`esn_fit(..., return_carry=True)`);
-    None from zeros.
+    None from zeros. `precision` is EsnConfig.recurrence_precision: where
+    `predict_route` gives "tf32" (None on the card) K2 launches its TF32
+    build at a width it has (`tf32_built`), and `tiling` must be that
+    build's; K4 and the CPU keep fp32, as does a caller that passes none.
 
     The launch copies the seed into its library's one `__constant__` slot
     on the current stream (csrc/esn_predict_core.cuh:c_seed). So launches
     of one library (K2's, K4's or K5's) must not run on two streams at
     once: a kernel could read the other launch's seed. The port launches
     them on one stream at a time."""
-    global launches, launches_grouped
+    global launches, launches_grouped, launches_tf32
     if readout not in ("per_row", "grouped"):
         raise ValueError(f"unknown readout {readout!r}")
+    tf32 = predict_route(precision, inputs.device) == "tf32" \
+        and readout == "per_row"
     if inputs.device.type == "cpu":
         return esn_predict(res, scale, Wt_out, inputs, n_forget,
                            host_generator(seed), init_carry=init_carry)
+    tf32 = tf32 and tf32_built(res.Wt.shape[0])
     if inputs.device.type != "cuda":
         raise ValueError(f"unsupported device {inputs.device}")
     B, T, n_in, n_res, G, n_out = _check_operands(res, Wt_out, inputs,
@@ -365,14 +422,15 @@ def esn_predict_cuda(res: EsnReservoir, scale: EsnScale,
                 f"readout slots a block; got Dg={B // G}, G={G}, B={B}")
         slots = grouped_slots(G, B // G, plan.rows_per_block)
     else:
-        plan = predict_tiling(B, n_res, n_in, n_out, n_sm) \
+        plan = predict_tiling(B, n_res, n_in, n_out, n_sm, tf32=tf32) \
             if tiling is None else tiling
-    out = _launch(readout, plan, res, scale, Wt_out, inputs, n_forget, seed,
-                  slots, init_carry=init_carry)
+    out = _launch("tf32" if tf32 else readout, plan, res, scale, Wt_out,
+                  inputs, n_forget, seed, slots, init_carry=init_carry)
     if readout == "grouped":
         launches_grouped += 1
     else:
         launches += 1
+        launches_tf32 += tf32
     return out
 
 

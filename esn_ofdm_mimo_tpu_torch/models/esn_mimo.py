@@ -15,6 +15,10 @@ models/esn_states_cuda.py), as the JAX package's fit does under
 ESN_TPU_IMPL=pallas; detection runs the CUDA predict kernel (K2, or K4
 under the JAX package's own switch ESN_TPU_PREDICT_READOUT=grouped where its
 condition holds; models/esn_cuda.py). CPU tensors run the plain versions.
+The detection functions take `precision`, EsnConfig.recurrence_precision,
+and pass it to the wrapper: None puts K2's recurrence product on the
+tensor cores in TF32 (`esn_cuda.predict_route`); their default, "highest",
+keeps fp32.
 
 EsnConfig(rng_mode="block") takes `train_mimo_esn_per_block` and
 `esn_detect_symbols_per_block`: every block has its own reservoir (a
@@ -80,7 +84,7 @@ def train_mimo_esn(res: EsnReservoir, scale: EsnScale, y_cp: torch.Tensor,
 def esn_detect_symbols(res: EsnReservoir, scale: EsnScale,
                        Wt_out: torch.Tensor, y_cp: torch.Tensor, delay: int,
                        cp_len: int, n_subcarriers: int, power_scale: float,
-                       seed=0) -> torch.Tensor:
+                       seed=0, precision="highest") -> torch.Tensor:
     """One OFDM symbol per row: y_cp (B, n_rx, N+cp) -> X_hat (B, N, n_tx).
     Wt_out may be grouped, (G, F, n_out) with B % G == 0 (readout g serves
     the contiguous run of B//G rows). With ESN_TPU_PREDICT_READOUT=grouped
@@ -94,7 +98,7 @@ def esn_detect_symbols(res: EsnReservoir, scale: EsnScale,
         readout = choose_readout(X_in.shape[0], G, res.Wt.shape[0],
                                  X_in.shape[2], Wt_out.shape[2], X_in.device)
     pred = esn_predict_cuda(res, scale, Wt_out, X_in, delay + cp_len, seed,
-                            readout=readout)
+                            readout=readout, precision=precision)
     x_hat_td = _deinterleave_reim(pred[:, :N])             # (B, n_tx, N)
     X_hat = torch.fft.fft(x_hat_td, dim=-1) / N / power_scale
     return X_hat.transpose(-1, -2)
@@ -132,7 +136,7 @@ def esn_detect_symbols_per_block(res_b: EsnReservoir, scale: EsnScale,
                                  Wt_out: torch.Tensor, y_cp: torch.Tensor,
                                  delay: int, cp_len: int,
                                  n_subcarriers: int, power_scale: float,
-                                 seeds) -> torch.Tensor:
+                                 seeds, precision="highest") -> torch.Tensor:
     """The detection of rng_mode="block" (JAX esn_detect_symbols_per_block):
     y_cp (B, D, n_rx, N+cp) -> X_hat (B, D, N, n_tx); block b's D symbols
     run on its reservoir and readout Wt_out[b], state noise seeded with
@@ -143,7 +147,7 @@ def esn_detect_symbols_per_block(res_b: EsnReservoir, scale: EsnScale,
         X_in = build_esn_input(y_cp[b], delay)
         pred = esn_predict_cuda(block_reservoir(res_b, b), scale,
                                 Wt_out[b:b + 1], X_in, delay + cp_len,
-                                seeds[b])
+                                seeds[b], precision=precision)
         X_hat = torch.fft.fft(_deinterleave_reim(pred[:, :N]), dim=-1)
         outs.append((X_hat / N / power_scale).transpose(-1, -2))
     return torch.stack(outs)
@@ -151,7 +155,7 @@ def esn_detect_symbols_per_block(res_b: EsnReservoir, scale: EsnScale,
 
 def esn_nmse(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
              y_cp: torch.Tensor, x_cp: torch.Tensor, delay: int, cp_len: int,
-             isi_duration: int, seed=0) -> torch.Tensor:
+             isi_duration: int, seed=0, precision="highest") -> torch.Tensor:
     """NMSE of the predicted waveform, the reference's nmse_for_delay
     (helper_mimo_esn_generic.py:40-56): y_cp (B, n_rx, T), x_cp (B, n_tx,
     T); per TX, the squared error of the first T - isi + 1 predicted samples
@@ -159,7 +163,8 @@ def esn_nmse(res: EsnReservoir, scale: EsnScale, Wt_out: torch.Tensor,
     TX -> (B,). Wt_out may be grouped as in `esn_detect_symbols`; the
     prediction runs K2 on the card."""
     X_in = build_esn_input(y_cp, delay)
-    pred = esn_predict_cuda(res, scale, Wt_out, X_in, delay + cp_len, seed)
+    pred = esn_predict_cuda(res, scale, Wt_out, X_in, delay + cp_len, seed,
+                            precision=precision)
     x_true = x_cp[..., isi_duration - 1:]
     x_hat = _deinterleave_reim(pred)[..., :x_true.shape[-1]]
     err = (x_hat - x_true).abs().pow(2).sum(-1)

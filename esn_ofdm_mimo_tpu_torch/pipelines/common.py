@@ -385,13 +385,14 @@ def detect_data_symbols(cfg: SimConfig, state: BlockState,
             return esn_detect_symbols_per_block(
                 state.reservoir, scale, Wt_out, y_cp, delay, cp, N,
                 lb.sqrt_pi,
-                key_seed_tensor(rng.fold_key(bkeys, _K_DETECT, tag)))
+                key_seed_tensor(rng.fold_key(bkeys, _K_DETECT, tag)),
+                cfg.esn.recurrence_precision)
         # rows are block-major (D symbols per block), so the (B, F, n_out)
         # readout passes grouped: row r uses readout r // D
         seed = key_seed_tensor(rng.fold_key(bkeys[0], _K_DETECT, tag))
         Xh = esn_detect_symbols(
             state.reservoir, scale, Wt_out, y_cp.reshape(B * D, n_rx, T),
-            delay, cp, N, lb.sqrt_pi, seed)
+            delay, cp, N, lb.sqrt_pi, seed, cfg.esn.recurrence_precision)
         return Xh.reshape(B, D, N, n_tx)
 
     # the channel is block-constant: each equaliser is solved once per

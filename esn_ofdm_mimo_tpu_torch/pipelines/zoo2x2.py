@@ -186,14 +186,15 @@ def zoo_round(cfg: SimConfig, ebno_db: float | EbnoRow, bkeys: torch.Tensor,
     mark("preds")
 
     res, scale, W = state.reservoir, state.scale_m, state.Wt_out_m
+    prec = cfg.esn.recurrence_precision
     train_nmse["esn"] = esn_nmse(
         res, scale, W, y_cp, x_cp, delay, cp, ofdm.isi_duration,
-        key_seed_tensor(rng.fold_key(bkeys[0], _K_ZOO, 1))).sum()
+        key_seed_tensor(rng.fold_key(bkeys[0], _K_ZOO, 1)), prec).sum()
     test_nmse["esn"] = esn_nmse(
         res, scale, W, y_cp_d.reshape(B * D, n_rx, T),
         x_cp_d.reshape(B * D, n_tx, T), delay, cp, ofdm.isi_duration,
-        key_seed_tensor(rng.fold_key(bkeys[0], _K_DETECT, 2))).reshape(B, D) \
-        .mean(1).sum()
+        key_seed_tensor(rng.fold_key(bkeys[0], _K_DETECT, 2)),
+        prec).reshape(B, D).mean(1).sum()
     mark("nmse")
 
     bit_errors = {

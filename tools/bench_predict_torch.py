@@ -11,12 +11,14 @@ each other plan (tile height x blocks an SM, in as many waves as the batch
 needs) the launcher has a build for, checks every output against the plain version (atol 1e-4, rtol
 1e-3: the sums are taken in another order) and prints ms per launch from
 CUDA events, in turns within one process. It is how a tile height is held
-against the chosen one on the card.
+against the chosen one on the card. Then K2's TF32 build (route "tf32",
+precision None) at its chosen tiling, against the plain TF32 form (atol
+5e-4, rtol 1e-3), in turns with the fp32 build.
 
 --ptxas first compiles the three predict sources with `-Xptxas -v` and
 prints registers and spill bytes of every kernel in them (template
 arguments: reservoir width / 64, tile height, grouped readout, ablation
-mask); it exits 1 if a build spills. Needs a GPU and nvcc.
+mask, TF32 product); it exits 1 if a build spills. Needs a GPU and nvcc.
 """
 from __future__ import annotations
 
@@ -48,9 +50,10 @@ def ptxas_report() -> bool:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
             entry, spill = "?", ("?", "?")
             for line in log.splitlines():
-                m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])ELi(\d+)", line)
+                m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])ELi(\d+)ELb([01])",
+                              line)
                 if m and "entry function" in line:
-                    entry = "<%s, %s, %s, %s>" % m.groups()
+                    entry = "<%s, %s, %s, %s, %s>" % m.groups()
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)
                 if m:
@@ -159,6 +162,24 @@ def main() -> int:
                       f"{cuda_ms(run):.3f} ms, max abs err "
                       f"{float((out - plain).abs().max()):.3e}"
                       f"{'' if good else ' MISMATCH'}")
+        tf = esn_cuda.predict_tiling(B, n_res, n_in, n_out, n_sm, tf32=True)
+        plain_tf = esn_predict(res, scale, W, x, n_forget, tf32=True)
+        runs = {p: (lambda p=p: esn_cuda.esn_predict_cuda(
+            res, scale, W, x, n_forget, 0, precision=p))
+            for p in ("highest", None)}
+        out = runs[None]()
+        torch.cuda.synchronize()
+        good = torch.allclose(out, plain_tf, atol=5e-4, rtol=1e-3)
+        ok &= good
+        ms = {p: [] for p in runs}
+        for p in ("highest", None, None, "highest"):      # in turns
+            ms[p].append(cuda_ms(runs[p]))
+        print(f"[{c.name} tf32] tile {tf.height} x {tf.blocks_per_sm} a SM, "
+              f"{tf.blocks} blocks of {tf.rows_per_block} rows, "
+              f"{tf.smem_bytes} B: {sum(ms[None]) / 2:.3f} ms, fp32 build "
+              f"{sum(ms['highest']) / 2:.3f} ms, max abs err against plain "
+              f"TF32 {float((out - plain_tf).abs().max()):.3e}"
+              f"{'' if good else ' MISMATCH'}")
     return 0 if ok else 1
 
 
